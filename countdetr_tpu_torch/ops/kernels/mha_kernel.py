@@ -1,0 +1,103 @@
+"""Multi-head attention core: a hand-written CUDA kernel and its plain version.
+
+``mha_core`` is what the decoder's self-attention calls. On a CUDA tensor
+it launches the kernel in ``csrc/mha.cu`` (the counterpart of the JAX
+package's Pallas ``fused_mha``); on a CPU tensor it runs ``mha_core_plain``.
+There is no fallback between the two: a CUDA call that the kernel cannot
+take raises.
+
+q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
+(B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
+dtype. A row whose keys are all masked gets the uniform softmax.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from countdetr_tpu_torch.ops.kernels import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)
+
+# Kernel launches since the counter was last reset (by whoever reads it).
+launches = 0
+
+
+def mha_core_plain(q, k, v, bias, num_heads):
+    """Plain PyTorch core, the JAX package's ``mha_core_einsum``: f32 logits
+    plus the f32 key bias, f32 softmax, probabilities cast to v's dtype."""
+    B, L, E = q.shape
+    d = E // num_heads
+    qh = q.reshape(B, L, num_heads, d).float()
+    kh = k.reshape(B, -1, num_heads, d).float()
+    vh = v.reshape(B, -1, num_heads, d)
+    attn = torch.einsum("blnd,bsnd->bnls", qh, kh) + bias.float()[:, None, None, :]
+    p = torch.softmax(attn, dim=-1).to(v.dtype)
+    return torch.einsum("bnls,bsnd->blnd", p, vh).reshape(B, L, E)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("mha")
+    if lib.mha_forward.argtypes is None:
+        lib.mha_forward.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p]
+        )
+        lib.mha_forward.restype = ctypes.c_int
+        lib.mha_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.mha_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check(q, k, v, bias, num_heads):
+    for name, t in dict(q=q, k=k, v=v, bias=bias).items():
+        if t.device != q.device:
+            raise ValueError(f"mha: {name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"mha: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"mha: {name} is not 16-byte aligned")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"mha: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} "
+                         "must match, float32 or bfloat16")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"mha: bias must be float32, got {bias.dtype}")
+    if q.dim() != 3:
+        raise ValueError(f"mha: q has shape {tuple(q.shape)}, want (B, L, E)")
+    B, L, E = q.shape
+    S = k.shape[1] if k.dim() == 3 else -1
+    for name, t, shape in (("k", k, (B, S, E)), ("v", v, (B, S, E)), ("bias", bias, (B, S))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"mha: {name} has shape {tuple(t.shape)}, want {shape}")
+    if E % num_heads or E // num_heads not in HEAD_DIMS:
+        raise ValueError(f"mha: head dim {E}/{num_heads} not in {HEAD_DIMS}")
+
+
+def mha_core(q, k, v, bias, num_heads):
+    """The attention core: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    global launches
+    if q.device.type == "cpu":
+        return mha_core_plain(q, k, v, bias, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha: no kernel for device {q.device}")
+    _check(q, k, v, bias, num_heads)
+    B, L, E = q.shape
+    S = k.shape[1]
+    lib = _lib()
+    smem = lib.mha_smem_bytes(DTYPE_CODES[q.dtype], E // num_heads, S)
+    if smem > 232448:
+        raise ValueError(f"mha: S={S} needs {smem} B of shared memory per block")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.mha_forward(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), B, L, S, E, num_heads, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
