@@ -1,12 +1,15 @@
-"""Model configuration of the port: its own copy of the JAX package's
-``ModelConfig`` and ``stage2_config`` (countdetr_tpu/config.py), with the
-TPU-only knobs (use_pallas_rcda, param_dtype, remat, the COUNTDETR_*
-environment switches) and the training-only dropout left out."""
+"""Configuration of the port: its own copy of the JAX package's
+``ModelConfig``, ``TrainConfig`` and ``stage2_config``
+(countdetr_tpu/config.py), with the TPU-only knobs (use_pallas_rcda,
+param_dtype, remat, the COUNTDETR_* environment switches), the dropout
+(0 in every published run) and the checkpoint, logging and mesh fields
+left out."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +56,39 @@ class ModelConfig:
         return self.num_query_position * self.num_query_pattern
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization, the reference's defaults (main.py:29-45, 96-121)."""
+
+    lr: float = 1e-4
+    lr_backbone: float = 1e-5
+    weight_decay: float = 1e-4
+    lr_drop: int = 20  # StepLR: lr *= 0.1 every lr_drop epochs
+    # MultiStepLR drop epochs; overrides lr_drop when set (reference
+    # 2nd-stage main.py:39 --lr_drop_epochs)
+    lr_drop_epochs: Optional[Tuple[int, ...]] = None
+    clip_max_norm: float = 0.1
+    sgd: bool = False
+
+    # loss coefficients
+    cls_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    variance_loss_coef: float = 2.0
+    focal_alpha: float = 0.25
+
+    # matcher costs
+    set_cost_class: float = 2.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+    # exact LAP on the host (scipy, as the reference matches) instead of
+    # the on-device auction
+    exact_match: bool = False
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 

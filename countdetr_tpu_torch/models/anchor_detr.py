@@ -191,7 +191,9 @@ def init_weights_(model: CountingDetr, g: torch.Generator):
 def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
                 state_dict: Optional[dict] = None) -> CountingDetr:
     """A CountingDetr on ``device`` in eval mode: weights from ``state_dict``
-    (loaded strictly) or, without one, random from ``seed``."""
+    (loaded strictly) or, without one, random from ``seed``. The model has
+    no dropout, so train and eval mode compute the same; a trainer calls
+    ``.train()`` all the same."""
     dev = resolve_device(device)
     model = CountingDetr(cfg)
     if state_dict is None:

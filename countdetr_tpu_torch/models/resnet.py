@@ -135,6 +135,10 @@ class ResNetBackbone(nn.Module):
                                          dil if i > 0 else 1, downsample=(i == 0)))
                 cin = planes * 4
             self.add_module(f"layer{stage + 1}", nn.ModuleList(blocks))
+        # never trained (reference backbone.py:66-68): the stem and layer1;
+        # every FrozenBatchNorm tensor is a buffer
+        self.conv1.requires_grad_(False)
+        self.layer1.requires_grad_(False)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)

@@ -9,6 +9,10 @@ take raises.
 q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
 (B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
 dtype. A row whose keys are all masked gets the uniform softmax.
+
+Where a gradient is wanted, the core runs inside ``MHACore``, an autograd
+Function whose backward recomputes through the plain core (the JAX
+package's ``mha_core_fused`` backward); the bias gets no gradient.
 """
 
 from __future__ import annotations
@@ -76,9 +80,8 @@ def _check(q, k, v, bias, num_heads):
         raise ValueError(f"mha: head dim {E}/{num_heads} not in {HEAD_DIMS}")
 
 
-def mha_core(q, k, v, bias, num_heads):
-    """The attention core: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _mha_forward(q, k, v, bias, num_heads):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     global launches
     if q.device.type == "cpu":
         return mha_core_plain(q, k, v, bias, num_heads)
@@ -101,3 +104,33 @@ def mha_core(q, k, v, bias, num_heads):
         raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+class MHACore(torch.autograd.Function):
+    """Forward: ``_mha_forward``. Backward: ``torch.autograd.grad`` of the
+    plain core, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, bias)
+        return _mha_forward(q, k, v, bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *xs, bias = ctx.saved_tensors
+        xs = [x.detach().requires_grad_(need) for x, need in zip(xs, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = mha_core_plain(*xs, bias, ctx.num_heads)
+        wanted = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad_out))
+        grads = [next(got) if x.requires_grad else None for x in xs]
+        return (*grads, None, None)
+
+
+def mha_core(q, k, v, bias, num_heads):
+    """The attention core: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; differentiable in q, k and v."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return MHACore.apply(q, k, v, bias, num_heads)
+    return _mha_forward(q, k, v, bias, num_heads)

@@ -13,6 +13,11 @@ Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   bias_row     : (B, W) additive mask, 0 valid / -1e30 padded, q's dtype
   bias_col     : (B, H)
 Returns (B, L, E) in q's dtype.
+
+Where a gradient is wanted, the core runs inside ``RCDACore``, an autograd
+Function whose backward recomputes through the plain core (the JAX
+package's ``_rcda_pallas_bwd``): only the inputs are saved, no
+(B, n, L, H, d) intermediate. The biases get no gradient.
 """
 
 from __future__ import annotations
@@ -96,9 +101,8 @@ def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
         raise ValueError(f"rcda: bfloat16 kernel takes H, W <= {MAX_AXIS_BF16}, got {H}, {W}")
 
 
-def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
-    """The RCDA core: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     global launches
     if q_row.device.type == "cpu":
         return rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
@@ -123,3 +127,34 @@ def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
         raise RuntimeError(f"rcda kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+class RCDACore(torch.autograd.Function):
+    """Forward: ``_rcda_forward``. Backward: ``torch.autograd.grad`` of the
+    plain core, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q_row, q_col, k_row, k_col, v, bias_row, bias_col)
+        return _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *xs, bias_row, bias_col = ctx.saved_tensors
+        xs = [x.detach().requires_grad_(need) for x, need in zip(xs, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = rcda_core_plain(*xs, bias_row, bias_col, ctx.num_heads)
+        wanted = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad_out))
+        grads = [next(got) if x.requires_grad else None for x in xs]
+        return (*grads, None, None, None)
+
+
+def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+    """The RCDA core: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors; differentiable in q_row, q_col, k_row, k_col and v."""
+    args = (q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args[:5]):
+        return RCDACore.apply(*args)
+    return _rcda_forward(*args)

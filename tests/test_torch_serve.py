@@ -20,8 +20,10 @@ from countdetr_tpu.data.batching import pack_space_to_depth, pad_to_bucket
 from countdetr_tpu.eval.postprocess import adaptive_threshold_counting as j_count
 
 from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting as t_count
-from countdetr_tpu_torch.ops.kernels import _build, mha_kernel, rcda_kernel
+from countdetr_tpu_torch.config import TrainConfig
+from countdetr_tpu_torch.ops.kernels import _build, auction_kernel, mha_kernel, rcda_kernel
 from countdetr_tpu_torch.serve import Predictor
+from countdetr_tpu_torch.train.train_step import Trainer
 from countdetr_tpu_torch.weights import params_from_jax
 from test_torch_model import jax_model_and_params, tiny_configs
 
@@ -99,7 +101,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import countdetr_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 25, names\n"
+        "for n in ('train.train_step', 'train.optimizer', 'ops.matching', 'ops.losses',\n"
+        "          'ops.kernels.auction_kernel'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'countdetr_tpu')\n"
         "       or m.startswith(('jax.', 'flax.', 'countdetr_tpu.'))]\n"
         "print(len(names), bad)\n"
@@ -120,6 +125,7 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(rcda_kernel, "launches", 0)
     monkeypatch.setattr(mha_kernel, "launches", 0)
+    monkeypatch.setattr(auction_kernel, "launches", 0)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     args = (f(2, 12, 32), f(2, 12, 32), f(2, 5, 32), f(2, 4, 32), f(2, 4, 5, 32),
             torch.zeros(2, 5), torch.zeros(2, 4))
@@ -129,7 +135,15 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     torch.testing.assert_close(mha_kernel.mha_core(q, k, v, torch.zeros(2, 9), 2),
                                mha_kernel.mha_core_plain(q, k, v, torch.zeros(2, 9), 2),
                                rtol=0, atol=0)
+    benefit, active = f(2, 6, 9), torch.ones(2, 6, dtype=torch.bool)
+    eps = torch.full((2,), 1e-3)
+    torch.testing.assert_close(auction_kernel.auction_assign(benefit, active, eps, 100),
+                               auction_kernel.auction_plain(benefit, active, eps, 100),
+                               rtol=0, atol=0)
     assert rcda_kernel.launches == 0 and mha_kernel.launches == 0
+    assert auction_kernel.launches == 0
+    with pytest.raises(ValueError):
+        auction_kernel.auction_assign(benefit.to("meta"), active.to("meta"), eps.to("meta"), 100)
     with pytest.raises(ValueError):
         rcda_kernel.rcda_core(*(a.to("meta") for a in args), 2)
     with pytest.raises(ValueError):
@@ -141,3 +155,9 @@ def test_predictor_on_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(tiny_configs()[1])
+
+
+def test_trainer_on_missing_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(tiny_configs()[1], TrainConfig())
