@@ -5,20 +5,25 @@
 
 Phases, each printed as one JSON line:
   device    the card (nvidia-smi name and power limit) and the kernel build,
-            one nvcc per CUDA source (rcda, mha, auction), all started
-            together;
+            one nvcc per CUDA source (rcda, rcda_rank1, mha, auction), all
+            started together;
   kernels   each hand-written kernel against its plain PyTorch version at
             the main paths' shapes: RCDA and MHA in bfloat16 and float32 at
-            B=32 (serving) and in bfloat16 at B=8 (the train step), max
-            error and its tolerance; the auction with tolerance 0
-            (assignments, rounds and bids identical) on the matcher's
-            shapes: 8x576x700 transposed on random, DETR-shaped and
-            degenerate costs, 576x128 (targets bid), 2x576x5600, integer
-            ties, eps-scaling on 128x128, an iteration cap that leaves -1s;
-            kernel / plain / library times (CUDA events), the least time
-            the card could take (bytes or operations), and the host scipy
-            LAP's time for the auction; then RCDA and MHA at a few other
-            shapes (ragged tiles, head dims 16 and 64), untimed;
+            B=32 (serving) and in bfloat16 at B=8 (the train step); RCDA v3
+            and rank-1 in bfloat16 and float32 at the stage-1 shapes (B=8,
+            24x42, L=1008 encoder with a padded image and L=700 decoder) and
+            at B=32 37x37 (L=1369, 576); MHA in bfloat16 at B=8 over the
+            pseudo-label point tiers S=700 (keys resident) and S=5600 (keys
+            streamed), one row fully masked; max error and its tolerance;
+            the auction with tolerance 0 (assignments, rounds and bids
+            identical) on the matcher's shapes: 8x576x700 transposed on
+            random, DETR-shaped and degenerate costs, 576x128 (targets bid),
+            2x576x5600, integer ties, eps-scaling on 128x128, an iteration
+            cap that leaves -1s; kernel / plain / library times (CUDA
+            events), the least time the card could take (bytes or
+            operations), and the host scipy LAP's time for the auction; then
+            the attention kernels at a few other shapes (ragged tiles, head
+            dims 16 and 64, streamed keys), untimed;
   parity    the full-width stage-2 model (ResNet-50-DC5, 6+6 layers, 576
             queries) in float32 on the card (kernels) against the same
             weights on the CPU (plain versions), one padded 592x592 image;
@@ -30,13 +35,30 @@ Phases, each printed as one JSON line:
             full-width 2+2-layer model in float32, B=2 at 256x256 with one
             padded image, on the card against the CPU, given the same match;
             every trainable parameter gets a finite, non-zero gradient;
-  train     this slice's main path: a bfloat16 Trainer takes 6 steps at
+  train     the stage-2 train step: a bfloat16 Trainer takes 6 steps at
             B=8, 592x592, alternating T=700 (one image with 40 valid
             targets) and T=128 batches; launch counters zeroed before and
             read after (12 RCDA, 6 MHA and 1 auction launch per step);
             finite losses, frozen tensors unchanged, trainable ones moved;
-            step time, img/s, matcher time, peak memory, a profiled step.
-Then the kernels line with the main paths' launch counts, the card's
+            step time, img/s, matcher time, peak memory, a profiled step;
+  stage1_parity  the full-width stage-1 model in float32 on the card
+            against the same weights on the CPU, B=2 in a 384x672 bucket
+            with one padded image, 700 points of which 500 valid, under
+            rcda_variant "v3" and "rank1";
+  stage1_train   stage 1's train path: a bfloat16 stage-1 Trainer takes
+            6 steps at B=8, 384x672, the 3 exemplar centres as queries
+            (12 RCDA and 6 MHA launches per step); finite losses, frozen
+            tensors unchanged, trainable ones moved; step time, img/s, the
+            profiler's idle share;
+  pseudo_label   stage 1's main path: generate_pseudo_labels over 24
+            images of mixed sizes in the three stage-1 buckets, point
+            counts in all three tiers (128, 700, 5600; one image with 3700
+            points), with perturbed weights, timed in turns under "v3",
+            "rank1", "rank1", "v3" after a warm-up run of each: annotation
+            counts equal the points, the two JSONs' w, h within 1 px, 12
+            RCDA (resp. 12 rank-1) and 6 MHA launches per forward; images/s,
+            points/s and a profiled run of each variant.
+Then the kernels line with each path's launch counts, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
 """
@@ -45,8 +67,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,7 +117,9 @@ def bound(ops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8):
+def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3", pad=(30, 25)):
+    """One RCDA core call of ``variant`` against its plain version; image 1
+    padded to ``pad`` (columns, rows), image 3 to 5 columns."""
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     d = E // n
@@ -101,24 +127,29 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8):
     k_row, k_col, v = r(B, W, E).to(dt), r(B, H, E).to(dt), r(B, H, W, E).to(dt)
     bias_row = torch.zeros(B, W, device=dev)
     bias_col = torch.zeros(B, H, device=dev)
-    bias_row[1, 30:] = -1e30  # one image padded on the right and bottom
-    bias_col[1, 25:] = -1e30
+    bias_row[1, pad[0]:] = -1e30  # one image padded on the right and bottom
+    bias_col[1, pad[1]:] = -1e30
     bias_row[3, 5:] = -1e30  # one narrow image
     args = (q_row, q_col, k_row, k_col, v, bias_row.to(dt), bias_col.to(dt), n)
-    got = rcda_kernel.rcda_core(*args)
+    plain = rcda_kernel.PLAIN[variant]
+    got = rcda_kernel.rcda_core(*args, variant)
     torch.cuda.synchronize()
-    want = rcda_kernel.rcda_core_plain(*args)
+    want = plain(*args)
     err = (got.float() - want.float()).abs().max().item()
     isz = torch.tensor([], dtype=dt).element_size()
-    ops = 2 * B * L * E * (H + W) + 2 * B * L * E * H * W + 2 * B * L * E * H
+    # both score products and the combine (v3: two stages, the H*d
+    # intermediate weighted by a_col; rank1: one H*W contraction plus the
+    # products that form P)
+    ops = 2 * B * L * E * (H + W) + 2 * B * L * E * H * W
+    ops += 2 * B * L * E * H if variant == "v3" else B * n * L * H * W
     nbytes = isz * (2 * B * L * E + B * (W + H) * E + B * H * W * E + B * (W + H) + B * L * E)
     bound_ms, bound_by = bound(ops, nbytes, dt)
     return {
-        "shape": {"B": B, "L": L, "H": H, "W": W, "E": E, "heads": n},
+        "variant": variant, "shape": {"B": B, "L": L, "H": H, "W": W, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
         "max_abs_err": err, "tol": TOL[dt]["rcda"], "finite": bool(torch.isfinite(got).all()),
-        "kernel_ms": cuda_ms(lambda: rcda_kernel.rcda_core(*args), 20),
-        "plain_ms": cuda_ms(lambda: rcda_kernel.rcda_core_plain(*args), 5),
+        "kernel_ms": cuda_ms(lambda: rcda_kernel.rcda_core(*args, variant), 20),
+        "plain_ms": cuda_ms(lambda: plain(*args), 5),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
     }
@@ -136,8 +167,11 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8):
     torch.cuda.synchronize()
     want = mha_kernel.mha_core_plain(q, k, v, bias, n)
     err = (got.float() - want.float()).abs().max().item()
+    del want
     dead = got[1].float()
     uniform_err = (dead - v[1].float().mean(0, keepdim=True)).abs().max().item()
+    layout = "streamed" if mha_kernel._lib().mha_streamed(d, L) and dt == torch.bfloat16 \
+        else "resident"
     qh, kh, vh = (x.view(B, L, n, d).transpose(1, 2) for x in (q, k, v))
     mask = bias[:, None, None, :].to(dt)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -146,14 +180,15 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8):
     nbytes = isz * 4 * B * L * E + 4 * B * L
     bound_ms, bound_by = bound(ops, nbytes, dt)
     return {
-        "shape": {"B": B, "L": L, "S": L, "E": E, "heads": n},
+        "shape": {"B": B, "L": L, "S": L, "E": E, "heads": n}, "keys": layout,
         "dtype": str(dt).replace("torch.", ""),
         "max_abs_err": err, "tol": TOL[dt]["mha"],
         "finite": bool(torch.isfinite(got).all()),
         "dead_row_finite": bool(torch.isfinite(dead).all()),
         "dead_row_uniform_err": uniform_err,
         "kernel_ms": cuda_ms(lambda: mha_kernel.mha_core(q, k, v, bias, n), 20),
-        "plain_ms": cuda_ms(lambda: mha_kernel.mha_core_plain(q, k, v, bias, n), 5),
+        "plain_ms": cuda_ms(lambda: mha_kernel.mha_core_plain(q, k, v, bias, n),
+                            5 if L <= 1024 else 2, warmup=1),
         "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
@@ -161,9 +196,11 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8):
 
 
 def edge_cases(rcda_kernel, mha_kernel, g):
-    """The kernels off the main path's shapes: ragged query tiles, key
-    counts that are not a multiple of 16, W < 16, head dims 16 and 64; each
-    against its plain version, untimed."""
+    """The attention kernels off the main path's shapes: ragged query tiles,
+    key counts that are not a multiple of 16, W < 16, head dims 16 and 64,
+    both RCDA variants, MHA keys streamed past the resident layout's limit
+    at head dims 32 and 64 (bfloat16; the float32 kernel stops short of
+    them and must raise); each against its plain version, untimed."""
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     out = []
@@ -175,11 +212,15 @@ def edge_cases(rcda_kernel, mha_kernel, g):
             bias_row[-1, W // 2 + 1:] = -1e30
             bias_col[-1, H // 2 + 1:] = -1e30
             args = (q_row, q_col, k_row, k_col, v, bias_row.to(dt), bias_col.to(dt), n)
-            err = (rcda_kernel.rcda_core(*args).float()
-                   - rcda_kernel.rcda_core_plain(*args).float()).abs().max().item()
-            out.append({"name": "rcda", "shape": [B, L, H, W, E, n], "dtype": str(dt)[6:],
-                        "max_abs_err": err, "tol": TOL[dt]["rcda"]})
-        for B, L, S, E, n in ((2, 40, 23, 64, 4), (2, 70, 130, 128, 2), (1, 5, 1, 32, 1)):
+            for variant in rcda_kernel.PLAIN:
+                err = (rcda_kernel.rcda_core(*args, variant).float()
+                       - rcda_kernel.PLAIN[variant](*args).float()).abs().max().item()
+                out.append({"name": f"rcda {variant}", "shape": [B, L, H, W, E, n],
+                            "dtype": str(dt)[6:], "max_abs_err": err, "tol": TOL[dt]["rcda"]})
+        mha_shapes = [(2, 40, 23, 64, 4), (2, 70, 130, 128, 2), (1, 5, 1, 32, 1)]
+        if dt == torch.bfloat16:
+            mha_shapes += [(2, 70, 1700, 128, 2), (1, 33, 1601, 64, 2), (1, 20, 2000, 64, 4)]
+        for B, L, S, E, n in mha_shapes:
             q = (r(B, L, E) * (E // n) ** -0.5).to(dt)
             k, v = r(B, S, E).to(dt), r(B, S, E).to(dt)
             bias = torch.zeros(B, S, device=dev)
@@ -187,7 +228,21 @@ def edge_cases(rcda_kernel, mha_kernel, g):
             err = (mha_kernel.mha_core(q, k, v, bias, n).float()
                    - mha_kernel.mha_core_plain(q, k, v, bias, n).float()).abs().max().item()
             out.append({"name": "mha", "shape": [B, L, S, E, n], "dtype": str(dt)[6:],
+                        "keys": "streamed" if mha_kernel._lib().mha_streamed(E // n, S)
+                        and dt == torch.bfloat16 else "resident",
                         "max_abs_err": err, "tol": TOL[dt]["mha"]})
+    # the float32 kernel's key limit is a clear refusal, not a failed launch
+    q = r(1, 8, 256)
+    kv = r(1, 5600, 256)
+    try:
+        mha_kernel.mha_core(q, kv, kv, torch.zeros(1, 5600, device=dev), 8)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out.append({"name": "mha float32 key limit", "max_keys": mha_kernel.max_keys(torch.float32, 32),
+                "bf16_max_keys": mha_kernel.max_keys(torch.bfloat16, 32), "refused": refused,
+                "max_abs_err": 0.0 if refused and "S=5600" in refused else float("inf"),
+                "tol": 0.0})
     return out
 
 
@@ -328,6 +383,14 @@ def train_batch(rng, B, size, T, n_valid_first=None, pad=None):
 def reset_launches(*mods):
     for m in mods:
         m.launches = 0
+        if hasattr(m, "rank1_launches"):
+            m.rank1_launches = 0
+
+
+def launch_counts(rcda_kernel, mha_kernel, auction_kernel):
+    """Every kernel's launches since the counters were last zeroed."""
+    return {"rcda": rcda_kernel.launches, "rcda_rank1": rcda_kernel.rank1_launches,
+            "mha": mha_kernel.launches, "auction": auction_kernel.launches}
 
 
 def grad_phase(rng, failures):
@@ -350,8 +413,8 @@ def grad_phase(rng, failures):
     total_g, parts_g, match = stage2_loss(gpu_model, prepare_stage2_batch(batch, "cuda"), tcfg)
     total_g.backward()
     torch.cuda.synchronize()
-    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernels}
-    want_launches = {"rcda_kernel": 4, "mha_kernel": 2, "auction_kernel": 1}
+    launches = launch_counts(*kernels)
+    want_launches = {"rcda": 4, "rcda_rank1": 0, "mha": 2, "auction": 1}
     if launches != want_launches:
         failures.append(("grad launches", launches, want_launches))
     cpu_match = MatchedTargets(*(None if x is None else x.cpu() for x in match))
@@ -386,7 +449,7 @@ def grad_phase(rng, failures):
 
 
 def train_phase(rng, smi, failures):
-    """The slice's main path: a bfloat16 Trainer at full width on the card."""
+    """The stage-2 train path: a bfloat16 Trainer at full width on the card."""
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.ops import matching
     from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
@@ -428,10 +491,10 @@ def train_phase(rng, smi, failures):
             metrics.append({k: v.item() for k, v in m.items()})
     finally:
         matching.batched_match = solve
-    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernels}
+    launches = launch_counts(*kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want_launches = {"rcda_kernel": 12 * len(plan), "mha_kernel": 6 * len(plan),
-                     "auction_kernel": len(plan)}
+    want_launches = {"rcda": 12 * len(plan), "rcda_rank1": 0, "mha": 6 * len(plan),
+                     "auction": len(plan)}
     if launches != want_launches:
         failures.append(("train launches", launches, want_launches))
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
@@ -483,6 +546,205 @@ def train_phase(rng, smi, failures):
     return launches
 
 
+STAGE1_BUCKETS = ((384, 384), (384, 512), (384, 672))
+
+
+def stage1_batch(rng, B, size, P, n_valid=None, pad=None):
+    """A Batcher-format stage-1 batch: packed uint8 images, P points with
+    their target w, h; image 0 keeps its first ``n_valid`` points, image 1
+    is padded to ``pad`` (h, w) when given, its points inside the content."""
+    from countdetr_tpu_torch.data.batching import pack_space_to_depth
+
+    H, W = size
+    raw = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    mask = np.zeros((B, H, W), bool)
+    points = rng.uniform(0.05, 0.95, (B, P, 2)).astype(np.float32)
+    if pad is not None:
+        mask[1, pad[0]:, :] = True
+        mask[1, :, pad[1]:] = True
+        raw[mask] = 0
+        points[1] *= np.asarray([pad[1] / W, pad[0] / H], np.float32)
+    valid = np.ones((B, P), bool)
+    if n_valid is not None:
+        valid[0, n_valid:] = False
+    return {"images": pack_space_to_depth(raw), "pad_mask": mask, "points": points,
+            "points_valid": valid, "whs": rng.uniform(0.02, 0.3, (B, P, 2)).astype(np.float32),
+            "batch_valid": np.ones(B, bool)}
+
+
+def stage1_parity_phase(rng, failures):
+    """Full-width float32 stage 1: card (kernels) against CPU (plain), both
+    RCDA variants, the same weights."""
+    from countdetr_tpu_torch.config import stage1_config
+    from countdetr_tpu_torch.models.anchor_detr import build_model
+
+    batch = stage1_batch(rng, 2, (384, 672), 700, n_valid=500, pad=(300, 500))
+    keys = ("images", "pad_mask", "points", "points_valid")
+    rec = {}
+    for variant in ("v3", "rank1"):
+        cfg = stage1_config(rcda_variant=variant)
+        cpu_model = build_model(cfg, device="cpu", seed=0)
+        perturb_(cpu_model, 3)
+        gpu_model = build_model(cfg, device="cuda", state_dict=cpu_model.state_dict())
+        with torch.inference_mode():
+            out_gpu = gpu_model(*(torch.from_numpy(batch[k]).cuda() for k in keys))
+            out_cpu = cpu_model(*(torch.from_numpy(batch[k]) for k in keys))
+        rec[variant] = {}
+        for key in ("pred_logits", "pred_wh", "pred_points"):
+            a, b = out_gpu[key].cpu(), out_cpu[key]
+            rec[variant][key] = {"max_abs_err": (a - b).abs().max().item(),
+                                 "finite": bool(torch.isfinite(a).all())}
+            if not (rec[variant][key]["max_abs_err"] <= PARITY_TOL and rec[variant][key]["finite"]):
+                failures.append(("stage1 parity", variant, key, rec[variant][key]))
+        del cpu_model, gpu_model, out_gpu
+    emit({"phase": "stage1_parity", "batch": 2, "bucket": [384, 672], "padded_image": [300, 500],
+          "points": 700, "valid_points": [500, 700], "dtype": "float32", "tol": PARITY_TOL,
+          "outputs": rec})
+
+
+def stage1_train_phase(rng, smi, failures):
+    """Stage 1's train path: a bfloat16 stage-1 Trainer at full width."""
+    from countdetr_tpu_torch.config import TrainConfig, stage1_config
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    trainer = Trainer(stage1_config(compute_dtype="bfloat16"), TrainConfig(), device="cuda",
+                       seed=0)
+    model = trainer.model
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    batches = [stage1_batch(rng, 8, (384, 672), 3) for _ in range(2)]
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*kernels)
+    step_ms, metrics = [], []
+    for i in range(6):
+        t = time.perf_counter()
+        m = trainer.step(batches[i % 2])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = launch_counts(*kernels)
+    want = {"rcda": 12 * 6, "rcda_rank1": 0, "mha": 6 * 6, "auction": 0}
+    if launches != want:
+        failures.append(("stage1 train launches", launches, want))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        failures.append(("stage1 train", "non-finite metric", metrics))
+    bad_steps = int(trainer.bad_steps.item())
+    if bad_steps:
+        failures.append(("stage1 train", "bad_steps", bad_steps))
+    after = model.state_dict()
+    frozen_changed = [k for k in before if k not in trainable and not torch.equal(before[k], after[k])]
+    # the stage-1 loss does not reach the cls head: only AdamW's decay acts
+    # on it, lr * wd = 1e-8 relative, below float32 resolution (as in JAX)
+    not_moved = [k for k in trainable if torch.equal(before[k], after[k])
+                 and not k.startswith("transformer.cls_embed")]
+    if frozen_changed or not_moved:
+        failures.append(("stage1 train", "frozen changed", frozen_changed, "not moved", not_moved))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_calls(lambda: trainer.step(batches[0]), 2, top=12)
+    steady = step_ms[1:]
+    emit({"phase": "stage1_train", "dtype": "bfloat16", "batch": 8, "bucket": [384, 672],
+          "queries": 3, "step_ms": step_ms, "step_ms_mean_after_first": float(np.mean(steady)),
+          "train_img_per_s": 8e3 / float(np.mean(steady)), "metrics": metrics,
+          "bad_steps": bad_steps, "launches": launches, "launches_expected": want,
+          "frozen_changed": frozen_changed, "not_moved": not_moved,
+          "trainable_tensors": len(trainable), "peak_memory_gb": peak_gb, "profile": prof,
+          "nvidia_smi": smi})
+    return launches
+
+
+def pseudo_dataset(rng, n=24):
+    """Images of mixed sizes in the three stage-1 buckets, with point counts
+    in all three tiers of max_points=700 (128, 700, 5600); image 2 holds
+    3700 points, FSC-147's densest."""
+    widths = ((200, 384), (385, 512), (513, 672))
+    counts = ((20, 128), (129, 700), (701, 3000))
+    ds = []
+    for i in range(n):
+        h = int(rng.integers(200, 385))
+        w = int(rng.integers(*widths[i % 3]))
+        k = 3700 if i == 2 else int(rng.integers(*counts[(i // 3) % 3]))
+        ds.append({"image": rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                   "points": rng.uniform(0.01, 0.99, (k, 2)).astype(np.float32),
+                   "orig_size": (w, h), "image_id": 1000 + i, "image_name": f"{1000 + i}.jpg"})
+    return ds
+
+
+def pseudo_label_phase(rng, smi, failures):
+    """Stage 1's main path: pseudo-labelling under both RCDA variants."""
+    from countdetr_tpu_torch.config import stage1_config
+    from countdetr_tpu_torch.data.batching import Batcher
+    from countdetr_tpu_torch.models.anchor_detr import build_model
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train.engine import generate_pseudo_labels, point_tiers
+
+    ds = pseudo_dataset(rng)
+    n_points = sum(len(s["points"]) for s in ds)
+    n_batches = len(Batcher(ds, 8, STAGE1_BUCKETS, max_points=700, point_tiers=point_tiers(700)))
+    tiers = sorted({b["points"].shape[1] for b in Batcher(
+        ds, 8, STAGE1_BUCKETS, max_points=700, point_tiers=point_tiers(700))})
+    out_dir = tempfile.mkdtemp(prefix="pseudo_labels_")
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    cpu_model = build_model(stage1_config(), device="cpu", seed=0)
+    perturb_(cpu_model, 5)  # the wh head must depend on the image
+    state = cpu_model.state_dict()
+    kw = dict(batch_size=8, buckets=STAGE1_BUCKETS, max_points=700, pack_s2d=True)
+    models = {v: build_model(stage1_config(compute_dtype="bfloat16", rcda_variant=v),
+                             device="cuda", state_dict=state) for v in ("v3", "rank1")}
+    paths = {v: os.path.join(out_dir, f"pseudo_{v}.json") for v in models}
+    for v, model in models.items():  # warm-up, outside the counts
+        generate_pseudo_labels(model, ds, paths[v], **kw)
+    rec = {v: {"seconds": [], "launches": []} for v in models}
+    # timed in turns, counters zeroed just before each run and read after
+    for v in ("v3", "rank1", "rank1", "v3"):
+        torch.cuda.synchronize()
+        reset_launches(*kernels)
+        t = time.perf_counter()
+        generate_pseudo_labels(models[v], ds, paths[v], also_xywh_path=paths[v][:-5] + "_xywh.json",
+                               **kw)
+        torch.cuda.synchronize()
+        rec[v]["seconds"].append(time.perf_counter() - t)
+        rec[v]["launches"].append(launch_counts(*kernels))
+    jsons, launches_by_variant = {}, {}
+    for v, r in rec.items():
+        key = "rcda" if v == "v3" else "rcda_rank1"
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0}
+        want[key] = 12 * n_batches
+        if any(got != want for got in r["launches"]):
+            failures.append(("pseudo_label launches", v, r["launches"], want))
+        launches_by_variant[v] = r["launches"][0]
+        with open(paths[v]) as f:
+            jsons[v] = json.load(f)
+        anns = jsons[v]["annotations"]
+        if not (len(anns) == n_points and jsons[v]["box_format"] == "cxcywh"
+                and len(jsons[v]["images"]) == len(ds)):
+            failures.append(("pseudo_label", v, len(anns), n_points))
+        seconds = float(np.mean(r["seconds"]))
+        r.update({"launches_expected": want, "annotations": len(anns),
+                  "img_per_s": len(ds) / seconds, "points_per_s": n_points / seconds,
+                  "profile": profile_calls(
+                      lambda: generate_pseudo_labels(models[v], ds, paths[v], **kw), 1)})
+    a = np.asarray([x["bbox"] for x in jsons["v3"]["annotations"]], np.float64)
+    b = np.asarray([x["bbox"] for x in jsons["rank1"]["annotations"]], np.float64)
+    same_layout = a.shape == b.shape and bool((a[:, :2] == b[:, :2]).all())
+    wh_diff = np.abs(a[:, 2:] - b[:, 2:]) if same_layout else np.asarray([np.inf])
+    if not (same_layout and wh_diff.max() <= 1):
+        failures.append(("pseudo_label variants disagree", float(wh_diff.max())))
+    emit({"phase": "pseudo_label", "dtype": "bfloat16", "images": len(ds),
+          "points": n_points, "max_points_in_an_image": max(len(s["points"]) for s in ds),
+          "batch_size": 8, "batches": n_batches, "point_tiers": tiers,
+          "buckets": [list(x) for x in STAGE1_BUCKETS], "variants": rec,
+          "wh_px_max_diff": float(wh_diff.max()),
+          "wh_px_mean_abs_diff": float(wh_diff.mean()),
+          "wh_px_share_differing": float((wh_diff > 0).mean()),
+          "wh_px_mean": float(a[:, 2:].mean()), "nvidia_smi": smi})
+    shutil.rmtree(out_dir)
+    return launches_by_variant
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -525,8 +787,21 @@ def main() -> int:
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
                   for dt in (torch.bfloat16, torch.float32)]
     rcda_cases += [rcda_case(rcda_kernel, g, torch.bfloat16, L, B=8) for L in (1369, 576)]
+    # stage 1: B=8 in the 384x672 bucket, C5 24x42, the encoder
+    # (L = H*W = 1008, image 1 padded) and the decoder over the 700 tier;
+    # both variants, both dtypes; the rank-1 kernel at B=32 37x37 too
+    stage1 = dict(B=8, H=24, W=42, pad=(34, 20))
+    rank1_cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for L in (1008, 700):
+            rcda_cases.append(rcda_case(rcda_kernel, g, dt, L, **stage1))
+            rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1", **stage1))
+        for L in (1369, 576):
+            rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1"))
     mha_cases = [mha_case(mha_kernel, g, dt) for dt in (torch.bfloat16, torch.float32)]
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=8)]
+    # the pseudo-label point tiers: 700 (keys resident) and 5600 (streamed)
+    mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=8, L=L) for L in (700, 5600)]
     edges = edge_cases(rcda_kernel, mha_kernel, g)
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
     torch.cuda.synchronize()
@@ -535,14 +810,14 @@ def main() -> int:
     capped = next(c for c in auctions if c["case"].endswith("cap 5"))
     if not capped["unassigned"]:
         failures.append(("auction", "the iteration cap left no -1", capped["case"]))
-    for c in rcda_cases + mha_cases:
+    for c in rcda_cases + rank1_cases + mha_cases:
         if not (c["max_abs_err"] <= c["tol"] and c["finite"]):
             failures.append(("kernel", c["shape"], c["dtype"], c["max_abs_err"]))
     for c in mha_cases:
         if not (c["dead_row_finite"] and c["dead_row_uniform_err"] <= c["tol"]):
             failures.append(("mha dead row", c["dtype"], c["dead_row_uniform_err"]))
-    emit({"phase": "kernels", "rcda": rcda_cases, "mha": mha_cases, "auction": auctions,
-          "edge": edges})
+    emit({"phase": "kernels", "rcda": rcda_cases, "rcda_rank1": rank1_cases, "mha": mha_cases,
+          "auction": auctions, "edge": edges})
 
     # 3. full-width float32 parity: card (kernels) against CPU (plain)
     cfg32 = stage2_config()
@@ -572,7 +847,8 @@ def main() -> int:
                                        for _ in range(7)] + [(592, 592)]) for _ in range(3)]
     pred.predict(batches[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
-    reset_launches(rcda_kernel, mha_kernel, auction_kernel)
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    reset_launches(*kernels)
     counts, latencies_ms = [], []
     for reqs in batches:
         t = time.perf_counter()
@@ -583,9 +859,8 @@ def main() -> int:
             if not (np.isfinite(r["boxes_cxcywh_px"]).all() and np.isfinite(r["scores"]).all()
                     and np.isfinite(r["threshold"])):
                 failures.append(("serving", "non-finite output"))
-    launches = {"rcda": rcda_kernel.launches, "mha": mha_kernel.launches,
-                "auction": auction_kernel.launches}
-    want = {"rcda": 12 * len(batches), "mha": 6 * len(batches), "auction": 0}
+    launches = launch_counts(*kernels)
+    want = {"rcda": 12 * len(batches), "rcda_rank1": 0, "mha": 6 * len(batches), "auction": 0}
     if launches != want:
         failures.append(("launches", launches, want))
 
@@ -610,13 +885,25 @@ def main() -> int:
     # 5. autograd through the kernels: card against CPU
     grad_phase(rng, failures)
 
-    # 6. this slice's main path: the bfloat16 train step
+    # 6. the stage-2 bfloat16 train step
     train_launches = train_phase(rng, smi, failures)
 
-    def summary(name_, replaces, source, cases, main_case, serving_count, train_count):
-        return {"name": name_, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": train_count,
-                "launches_by_path": {"serving": serving_count, "train": train_count},
+    # 7. stage 1: float32 parity, the train step, pseudo-labels
+    stage1_parity_phase(rng, failures)
+    stage1_launches = stage1_train_phase(rng, smi, failures)
+    pseudo_launches = pseudo_label_phase(rng, smi, failures)
+
+    # pseudo_label: one timed run of each variant together (the phase line
+    # has them apart)
+    pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
+                    for k in pseudo_launches["v3"]}
+    paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
+             "pseudo_label": pseudo_total}
+
+    def summary(key, replaces, source, cases, main_case, main_count):
+        return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": main_count,
+                "launches_by_path": {path: counts_[key] for path, counts_ in paths.items()},
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "tol": main_case["tol"], "shape": main_case["shape"],
                 "dtype": main_case.get("dtype", "float32"), "ms": main_case["kernel_ms"],
@@ -624,22 +911,32 @@ def main() -> int:
                 "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"], "cases": cases}
 
-    # times at the train step's shapes (B=8 bf16), whose launches the line reports
+    # times at stage 1's shapes (B=8 bf16: the encoder in the
+    # 384x672 bucket, MHA over the 5600-point tier); launches from the
+    # pseudo-label runs, the auction's from the stage-2 train step (stage 1
+    # has no matching)
+    def pick(cases, **shape):
+        return next(c for c in cases if c["dtype"] == "bfloat16"
+                    and all(c["shape"][k] == v for k, v in shape.items()))
+
     auction_main = next(c for c in auctions if c["case"] == "576x700 detr")
-    rcda_main = next(c for c in rcda_cases if c["shape"]["B"] == 8 and c["shape"]["L"] == 1369)
     emit({"kernels": [
         summary("rcda", "countdetr_tpu/ops/pallas/rcda_kernel.py:213 fused_rcda",
                 "countdetr_tpu_torch/csrc/rcda.cu",
-                [c for c in rcda_cases if c["dtype"] == "bfloat16"], rcda_main,
-                launches["rcda"], train_launches["rcda_kernel"]),
+                [c for c in rcda_cases if c["dtype"] == "bfloat16"],
+                pick(rcda_cases, B=8, L=1008), pseudo_total["rcda"]),
+        summary("rcda_rank1", "countdetr_tpu/ops/pallas/rcda_kernel.py:153 fused_rcda_rank1",
+                "countdetr_tpu_torch/csrc/rcda_rank1.cu",
+                [c for c in rank1_cases if c["dtype"] == "bfloat16"],
+                pick(rank1_cases, B=8, L=1008), pseudo_total["rcda_rank1"]),
         summary("mha", "countdetr_tpu/ops/pallas/mha_kernel.py:64 fused_mha",
                 "countdetr_tpu_torch/csrc/mha.cu",
-                [c for c in mha_cases if c["dtype"] == "bfloat16"], mha_cases[-1],
-                launches["mha"], train_launches["mha_kernel"]),
+                [c for c in mha_cases if c["dtype"] == "bfloat16"],
+                pick(mha_cases, B=8, S=5600), pseudo_total["mha"]),
         summary("auction", "countdetr_tpu/ops/pallas/auction_kernel.py:130 auction_assign",
                 "countdetr_tpu_torch/csrc/auction.cu",
                 [{k: c[k] for k in ("case", "max_abs_err", "identical") if k in c}
-                 for c in auctions], auction_main, 0, train_launches["auction_kernel"]),
+                 for c in auctions], auction_main, train_launches["auction"]),
     ]})
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

@@ -1,15 +1,17 @@
 """Configuration of the port: its own copy of the JAX package's
-``ModelConfig``, ``TrainConfig`` and ``stage2_config``
+``ModelConfig``, ``TrainConfig``, ``stage1_config`` and ``stage2_config``
 (countdetr_tpu/config.py), with the TPU-only knobs (use_pallas_rcda,
-param_dtype, remat, the COUNTDETR_* environment switches), the dropout
-(0 in every published run) and the checkpoint, logging and mesh fields
-left out."""
+param_dtype, remat, the COUNTDETR_* environment switches other than the
+RCDA variant), the dropout (0 in every published run) and the checkpoint,
+logging and mesh fields left out."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+RCDA_VARIANTS = ("v3", "rank1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +50,17 @@ class ModelConfig:
     # parameters are float32; activations run in compute_dtype
     compute_dtype: str = "float32"
 
+    # RCDA core on the card: "v3" the two-stage combine (csrc/rcda.cu),
+    # "rank1" one H*W contraction of the rank-1 probabilities
+    # (csrc/rcda_rank1.cu). The counterpart of the JAX package's
+    # COUNTDETR_PALLAS_VARIANT (countdetr_tpu/ops/rcda.py), same values.
+    rcda_variant: str = "v3"
+
+    def __post_init__(self):
+        if self.rcda_variant not in RCDA_VARIANTS:
+            raise ValueError(f"rcda_variant must be one of {RCDA_VARIANTS}, "
+                             f"got {self.rcda_variant!r}")
+
     @property
     def num_queries(self) -> int:
         if self.spatial_prior == "grid":
@@ -78,6 +91,8 @@ class TrainConfig:
     bbox_loss_coef: float = 5.0
     giou_loss_coef: float = 2.0
     variance_loss_coef: float = 2.0
+    wh_loss_coef: float = 1.0  # stage-1 BoundingBoxCriterion weights
+    stage1_giou_coef: float = 0.4
     focal_alpha: float = 0.25
 
     # matcher costs
@@ -90,6 +105,21 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def stage1_config(**model_kw) -> ModelConfig:
+    """Stage-1 pseudo-GT regressor: the annotated points are the queries
+    (the defined prior), one pattern, no variance head, no exemplar
+    aggregation (reference scripts/weakly_supervise_fscd_147.sh). Keywords
+    override any field."""
+    return ModelConfig(
+        stage=1,
+        spatial_prior="defined",
+        num_query_pattern=1,
+        num_query_position=3,
+        with_variance_head=False,
+        exemplar_aggregation=False,
+    ).replace(**model_kw)
 
 
 def stage2_config(**model_kw) -> ModelConfig:

@@ -18,14 +18,20 @@
 //
 // What the design does about it:
 //  * bf16 (the serving path): tensor cores, mma.sync m16n8k16 with f32
-//    accumulation. One block of 4 warps per (64-query tile, head, batch);
-//    the head's K and V^T sit in shared memory, each warp owns 16 queries.
-//    Three passes over the keys keep the softmax exact without storing the
-//    logits: row max, row sum, then the normalised probabilities, rounded
-//    to bf16 in the registers that hold the scores, feed the PV product
-//    directly (a score tile's accumulator layout is the A operand's). The
-//    QK^T products are recomputed per pass, which is cheap on tensor cores;
-//    no (B, n, L, S) array reaches device memory.
+//    accumulation. One block of 4 warps per (64-query tile, head, batch),
+//    each warp owning 16 queries. Three passes over the keys keep the
+//    softmax exact without storing the logits: row max, row sum, then the
+//    normalised probabilities, rounded to bf16 in the registers that hold
+//    the scores, feed the PV product directly (a score tile's accumulator
+//    layout is the A operand's). The QK^T products are recomputed per
+//    pass, which is cheap on tensor cores; no (B, n, L, S) array reaches
+//    device memory. Two layouts of the keys, chosen by S alone:
+//    - resident (S up to ~1,500 at d=32): the head's K and V^T sit in
+//      shared memory for all three passes;
+//    - streamed (longer S, the stage-1 point tiers up to 5,600 and beyond):
+//      K and V pass through shared memory in tiles of kKT keys, two tiles
+//      in flight by cp.async, K once per pass and V in the third; only the
+//      key bias row stays resident. The numerics are the resident layout's.
 //  * float32: CUDA cores, one block of 128 threads per (32-query tile,
 //    head, batch); the full logits row of every query stays in shared
 //    memory, K and V stream through in 64-key chunks.
@@ -217,6 +223,173 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
+// Streamed layout: the bias row [s_pad] resident, then two stages, each a
+// tile of kKT key rows (pitch kp words) and kKT value rows as stored
+// (pitch (D + 8) / 2 words, read by ldmatrix.trans).
+constexpr int kKT = 128;  // keys per streamed tile
+
+struct StreamLayout {  // shared memory in 32-bit words
+  int s_pad, kp, vp, bias, k, v, stage, total;
+  __host__ __device__ StreamLayout(int D, int S) {
+    s_pad = (S + kKT - 1) / kKT * kKT;
+    kp = frag_pitch(D / 2);
+    vp = (D + 8) / 2;
+    bias = 0;
+    k = bias + s_pad;
+    v = k + kKT * kp;
+    stage = kKT * (kp + vp);
+    total = k + 2 * stage;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+mha_mma_stream_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int L, int S, int E) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  const StreamLayout lay(D, S);
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  float* s_b = reinterpret_cast<float*>(smem_w + lay.bias);
+
+  const int tid = threadIdx.x;
+  const int l0 = blockIdx.x * kMmaTQ;
+  const int hoff = blockIdx.y * D;
+  const size_t b = blockIdx.z;
+  for (int i = tid; i < lay.s_pad; i += kThreads)
+    s_b[i] = i < S ? bias[b * S + i] : -INFINITY;  // padded keys weigh 0
+
+  // Step i of the 3 * nt steps is pass i / nt over key tile i % nt; step i
+  // uses stage i % 2, and step i + 1's tile is copied in while step i runs.
+  // Keys past S are zero rows (stored directly), so no stale value enters.
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  const int nt = lay.s_pad / kKT;
+  const __nv_bfloat16* kb = k + b * S * E + hoff;
+  const __nv_bfloat16* vb = v + b * S * E + hoff;
+  const uint32_t smem_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_w));
+  auto stage_k = [&](int step) { return lay.k + (step % 2) * lay.stage; };
+  auto copy_rows = [&](const __nv_bfloat16* src, int t0, int words0, int pitch) {
+    for (int i = tid; i < kKT * CH; i += kThreads) {
+      const int r = i / CH, ch = i % CH;
+      const int dst = words0 + r * pitch + ch * 4;
+      if (t0 + r < S)
+        cp_async16(smem_addr + dst * 4, src + static_cast<size_t>(t0 + r) * E + ch * 8);
+      else
+        *reinterpret_cast<uint4*>(smem_w + dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto issue = [&](int step) {
+    if (step < 3 * nt) {
+      const int t0 = (step % nt) * kKT;
+      copy_rows(kb, t0, stage_k(step), lay.kp);
+      if (step >= 2 * nt) copy_rows(vb, t0, stage_k(step) + kKT * lay.kp, lay.vp);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = l0 + (tid / 32) * 16 + g, r1 = r0 + 8;
+  const __nv_bfloat16* qb = q + b * L * E + hoff;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + 2 * t4;
+    qa[ks][0] = r0 < L ? ld_pair(qb + static_cast<size_t>(r0) * E + c) : 0u;
+    qa[ks][1] = r1 < L ? ld_pair(qb + static_cast<size_t>(r1) * E + c) : 0u;
+    qa[ks][2] = r0 < L ? ld_pair(qb + static_cast<size_t>(r0) * E + c + 8) : 0u;
+    qa[ks][3] = r1 < L ? ld_pair(qb + static_cast<size_t>(r1) * E + c + 8) : 0u;
+  }
+
+  // scores of rows (g, g+8) against keys n0 + 2t, n0 + 2t + 1 of a tile
+  auto scores = [&](const uint32_t* s_k, int t0, int n0, float (&s)[4]) {
+    s[0] = s[1] = s[2] = s[3] = 0.f;
+    const uint32_t* kr = s_k + (n0 + g) * lay.kp;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) mma_bf16(s, qa[ks], kr[ks * 8 + t4], kr[ks * 8 + 4 + t4]);
+    const float b0 = s_b[t0 + n0 + 2 * t4], b1 = s_b[t0 + n0 + 2 * t4 + 1];
+    s[0] += b0;
+    s[1] += b1;
+    s[2] += b0;
+    s[3] += b1;
+  };
+  auto quad_max = [](float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  };
+  auto quad_sum = [](float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+  };
+  const int lm_row = (lane / 8 % 2) * 8 + lane % 8, lm_col = lane / 16 * 16;
+  const int vrow_bytes = lay.vp * 4;
+
+  float m0 = -FLT_MAX, m1 = -FLT_MAX, z0 = 0.f, z1 = 0.f, rz0 = 0.f, rz1 = 0.f;
+  float acc[D / 8][4] = {};
+  for (int step = 0; step < 3 * nt; ++step) {
+    cp_async_wait<0>();  // this thread's copies of the step's tile landed
+    __syncthreads();     // everyone's did, and the other stage is free again
+    issue(step + 1);
+    const int pass = step / nt, t0 = (step % nt) * kKT;
+    const uint32_t* s_k = smem_w + stage_k(step);
+    if (pass == 0) {  // row maxima
+      for (int n0 = 0; n0 < kKT; n0 += 8) {
+        float s[4];
+        scores(s_k, t0, n0, s);
+        m0 = fmaxf(m0, fmaxf(s[0], s[1]));
+        m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+      }
+      if (step == nt - 1) {
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+      }
+    } else if (pass == 1) {  // row sums of exp(s - max)
+      for (int n0 = 0; n0 < kKT; n0 += 8) {
+        float s[4];
+        scores(s_k, t0, n0, s);
+        z0 += expf(s[0] - m0) + expf(s[1] - m0);
+        z1 += expf(s[2] - m1) + expf(s[3] - m1);
+      }
+      if (step == 2 * nt - 1) {
+        rz0 = 1.f / quad_sum(z0);
+        rz1 = 1.f / quad_sum(z1);
+      }
+    } else {  // p rounded to bf16, out += p V
+      const uint32_t s_v = smem_addr + (stage_k(step) + kKT * lay.kp) * 4;
+      for (int n0 = 0; n0 < kKT; n0 += 16) {
+        float s0[4], s1[4];
+        scores(s_k, t0, n0, s0);
+        scores(s_k, t0, n0 + 8, s1);
+        const uint32_t pa[4] = {
+            pack_bf16(expf(s0[0] - m0) * rz0, expf(s0[1] - m0) * rz0),
+            pack_bf16(expf(s0[2] - m1) * rz1, expf(s0[3] - m1) * rz1),
+            pack_bf16(expf(s1[0] - m0) * rz0, expf(s1[1] - m0) * rz0),
+            pack_bf16(expf(s1[2] - m1) * rz1, expf(s1[3] - m1) * rz1),
+        };
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {  // two n-tiles of 8 channels
+          uint32_t bf[4];
+          ldmatrix_x4_trans(s_v + (n0 + lm_row) * vrow_bytes + np * 32 + lm_col, bf);
+          mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
+          mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  __nv_bfloat16* ob = out + b * L * E + hoff;
+#pragma unroll
+  for (int nt8 = 0; nt8 < D / 8; ++nt8) {
+    const int c = nt8 * 8 + 2 * t4;
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * E + c) =
+          pack_bf16(acc[nt8][0], acc[nt8][1]);
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * E + c) =
+          pack_bf16(acc[nt8][2], acc[nt8][3]);
+  }
+}
+
 // ------------------------------------------------------------- float32 ---
 
 constexpr int kTQ = 32;  // queries per block
@@ -354,9 +527,16 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------ dispatch ---
 
+// The bf16 kernel keeps the head's keys resident when they fit, else streams.
+bool streamed(int D, int S) {
+  return static_cast<size_t>(MmaLayout(D, S).total) * sizeof(uint32_t) >
+         static_cast<size_t>(kMaxSmem);
+}
+
 size_t smem_bytes(int dtype, int D, int S) {
-  return dtype == 0 ? static_cast<size_t>(f32_smem_floats(D, S)) * sizeof(float)
-                    : static_cast<size_t>(MmaLayout(D, S).total) * sizeof(uint32_t);
+  if (dtype == 0) return static_cast<size_t>(f32_smem_floats(D, S)) * sizeof(float);
+  const int words = streamed(D, S) ? StreamLayout(D, S).total : MmaLayout(D, S).total;
+  return static_cast<size_t>(words) * sizeof(uint32_t);
 }
 
 template <int D>
@@ -375,7 +555,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, const float* 
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bias, static_cast<float*>(out), L, S, E);
   } else {
-    auto kern = mha_mma_kernel<D>;
+    auto kern = streamed(D, S) ? mha_mma_stream_kernel<D> : mha_mma_kernel<D>;
     err = cudaFuncSetAttribute(kern, attr, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((L + kMmaTQ - 1) / kMmaTQ, num_heads, B);
@@ -409,3 +589,6 @@ extern "C" int mha_forward(int dtype, const void* q, const void* k,
 extern "C" long long mha_smem_bytes(int dtype, int D, int S) {
   return static_cast<long long>(smem_bytes(dtype, D, S));
 }
+
+// 1 if the bf16 kernel streams the keys at S (0: resident).
+extern "C" int mha_streamed(int D, int S) { return streamed(D, S) ? 1 : 0; }

@@ -1,1 +1,1 @@
-"""Request-side image packing."""
+"""Host-side data: bucketed batching, request packing and COCO JSON output."""

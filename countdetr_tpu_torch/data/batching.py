@@ -1,11 +1,30 @@
-"""Request-side packing: pad an image into its bucket and space-to-depth pack
-a batch (countdetr_tpu/data/batching.py). Pure numpy, on the host."""
+"""Fixed-shape batching on the host (countdetr_tpu/data/batching.py): pad an
+image into its (H, W) bucket, space-to-depth pack a batch, pad points and
+boxes to capacities with validity masks, group samples into batches
+(``Batcher``) and prefetch them on a thread. Pure numpy.
+
+Left out against the JAX package, for the training engine and data parallelism:
+the worker pool that decodes samples in other processes (``num_workers``)
+and the multi-process global schedule (``process_index``/``process_count``,
+data parallelism); also the ``sampled_points`` of the sampled prior.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+import queue
+import threading
+import warnings
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def pick_bucket(h: int, w: int, buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """Smallest-area bucket that fits (h, w); the largest when none does."""
+    fitting = [b for b in buckets if b[0] >= h and b[1] >= w]
+    if not fitting:
+        return max(buckets, key=lambda b: b[0] * b[1])
+    return min(fitting, key=lambda b: b[0] * b[1])
 
 
 def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -57,3 +76,216 @@ def pack_space_to_depth(images: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.transpose(0, 1, 3, 2, 4, 5)).reshape(
         B, H // 2, W // 2, 4 * C
     )
+
+
+def pad_rows(x: np.ndarray, n: int, dims: int):
+    """Pad a (k, dims) array to (n, dims) and its validity (n,); rows past n
+    are dropped."""
+    x = np.asarray(x, dtype=np.float32).reshape(-1, dims)[:n]
+    k = x.shape[0]
+    out = np.zeros((n, dims), dtype=np.float32)
+    out[:k] = x
+    valid = np.zeros((n,), dtype=bool)
+    valid[:k] = True
+    return out, valid
+
+
+class Batcher:
+    """Groups per-image sample dicts into fixed-shape numpy batches.
+
+    Keys handled when a sample has them:
+      image (HWC) -> images (B, H, W, 3), or (B, H/2, W/2, 12) with
+        ``pack_s2d``, + pad_mask (B, H, W)
+      points (k, 2) -> points (B, P, 2) + points_valid
+      whs (k, 2) -> whs (B, P, 2), aligned with points
+      boxes (k, 4) -> boxes (B, T, 4) + boxes_valid
+      exemplar_boxes (K, 4) -> (B, K, 4)
+    Everything else goes into 'meta' (one dict per sample), which also
+    records the untruncated 'n_points'/'n_boxes' of its sample. A partial
+    batch is padded by repeating its last sample, 'batch_valid' marking the
+    real rows (and ANDed into points_valid / boxes_valid).
+
+    A sample is grouped with others of its bucket and capacity. With
+    ``point_tiers`` (ascending capacities) the point capacity is the
+    smallest tier that holds all its points, else ``max_points``;
+    ``box_tiers`` likewise for boxes. Pseudo-labelling uses point tiers so
+    that no annotated point is dropped. The schedule is deterministic in
+    dataset order; full groups are emitted as they fill, the partial ones
+    at the end. (Shuffling and dropping the remainder come with the training
+    loops.)
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        buckets: Sequence[Tuple[int, int]],
+        max_points: int = 700,
+        max_boxes: int = 700,
+        point_tiers: Optional[Sequence[int]] = None,
+        box_tiers: Optional[Sequence[int]] = None,
+        pack_s2d: bool = False,
+    ):
+        self.ds = dataset
+        self.bs = batch_size
+        self.buckets = tuple(buckets)
+        self.max_points = max_points
+        self.max_boxes = max_boxes
+        self.point_tiers = tuple(sorted(point_tiers)) if point_tiers else None
+        self.box_tiers = tuple(sorted(box_tiers)) if box_tiers else None
+        self.pack_s2d = pack_s2d
+        self._warned_truncation = False
+        # (bucket, n_points, n_boxes) per sample index, epoch-invariant
+        self._meta_cache: Dict[int, Tuple] = {}
+
+    @staticmethod
+    def _capacity(n: int, cap: int, tiers) -> int:
+        if tiers is None:
+            return cap
+        for t in tiers:
+            if n <= t:
+                return t
+        return tiers[-1]
+
+    def _warn_truncated(self, kind: str, n: int, cap: int):
+        if not self._warned_truncation:
+            self._warned_truncation = True
+            warnings.warn(
+                f"Batcher: sample has {n} {kind} but capacity is {cap}; the extra "
+                f"{kind} are dropped from the padded arrays (meta keeps n_{kind}). "
+                f"Raise max_{kind} or use {kind[:-1]}_tiers to keep them all.",
+                stacklevel=3,
+            )
+
+    def _assemble(self, samples: List[Dict], bucket, pt_cap: int, box_cap: int,
+                  real: int) -> Dict:
+        samples = samples + [samples[-1]] * (self.bs - len(samples))
+        batch: Dict = {"meta": [], "bucket": bucket}
+        images, masks, pts, ptsv, whs, boxes, boxesv, rects = ([] for _ in range(8))
+        for s in samples:
+            img, m = pad_to_bucket(s["image"], bucket)
+            images.append(img)
+            masks.append(m)
+            n_points = n_boxes = 0
+            if "points" in s:
+                n_points = len(np.asarray(s["points"]).reshape(-1, 2))
+                if n_points > pt_cap:
+                    self._warn_truncated("points", n_points, pt_cap)
+                p, v = pad_rows(s["points"], pt_cap, 2)
+                pts.append(p)
+                ptsv.append(v)
+            if "whs" in s:
+                whs.append(pad_rows(s["whs"], pt_cap, 2)[0])
+            if "boxes" in s:
+                n_boxes = len(np.asarray(s["boxes"]).reshape(-1, 4))
+                if n_boxes > box_cap:
+                    self._warn_truncated("boxes", n_boxes, box_cap)
+                b, v = pad_rows(s["boxes"], box_cap, 4)
+                boxes.append(b)
+                boxesv.append(v)
+            if "exemplar_boxes" in s:
+                rects.append(np.asarray(s["exemplar_boxes"], dtype=np.float32))
+            meta = {k: v for k, v in s.items()
+                    if k not in ("image", "points", "whs", "boxes", "exemplar_boxes")}
+            meta["n_points"] = n_points
+            meta["n_boxes"] = n_boxes
+            batch["meta"].append(meta)
+        batch["images"] = np.stack(images)
+        if self.pack_s2d:
+            batch["images"] = pack_space_to_depth(batch["images"])
+        batch["pad_mask"] = np.stack(masks)
+        bv = np.zeros((self.bs,), dtype=bool)
+        bv[:real] = True
+        batch["batch_valid"] = bv
+        if pts:
+            batch["points"] = np.stack(pts)
+            batch["points_valid"] = np.stack(ptsv) & bv[:, None]
+        if whs:
+            batch["whs"] = np.stack(whs)
+        if boxes:
+            batch["boxes"] = np.stack(boxes)
+            batch["boxes_valid"] = np.stack(boxesv) & bv[:, None]
+        if rects:
+            batch["exemplar_boxes"] = np.stack(rects)
+        return batch
+
+    def _meta(self, i: int) -> Tuple[Tuple[int, int], int, int]:
+        """(bucket, n_points, n_boxes) of sample i, from the dataset's
+        image_size / num_points / num_boxes where it has them (no pixels
+        decoded), else from the sample itself. Cached."""
+        m = self._meta_cache.get(i)
+        if m is not None:
+            return m
+        ds = self.ds
+        s = None
+        if hasattr(ds, "image_size"):
+            h, w = ds.image_size(i)
+        else:
+            s = ds[i]
+            h, w = s["image"].shape[:2]
+
+        def count(kind: str, attr: str, dims: int) -> int:
+            nonlocal s
+            if hasattr(ds, attr):
+                return int(getattr(ds, attr)(i))
+            if s is None:
+                s = ds[i]
+            return len(np.asarray(s[kind]).reshape(-1, dims)) if kind in s else 0
+
+        # only tier grouping needs the counts
+        n_pts = count("points", "num_points", 2) if self.point_tiers else 0
+        n_boxes = count("boxes", "num_boxes", 4) if self.box_tiers else 0
+        m = (pick_bucket(h, w, self.buckets), n_pts, n_boxes)
+        self._meta_cache[i] = m
+        return m
+
+    def _schedule(self) -> List[Tuple[Tuple, List[int], int]]:
+        """The batches: [(key, indices, n_real)] with key = (bucket, point
+        capacity, box capacity); indices has batch_size entries, a partial
+        group padded by repeating its last sample."""
+        sched: List[Tuple[Tuple, List[int], int]] = []
+        pending: Dict[Tuple, List[int]] = {}
+        for i in range(len(self.ds)):
+            bucket, n_pts, n_boxes = self._meta(i)
+            key = (bucket, self._capacity(n_pts, self.max_points, self.point_tiers),
+                   self._capacity(n_boxes, self.max_boxes, self.box_tiers))
+            pending.setdefault(key, []).append(i)
+            if len(pending[key]) == self.bs:
+                sched.append((key, pending.pop(key), self.bs))
+        for key, rest in pending.items():
+            sched.append((key, rest + [rest[-1]] * (self.bs - len(rest)), len(rest)))
+        return sched
+
+    def __iter__(self) -> Iterator[Dict]:
+        for (bucket, pt_cap, box_cap), idxs, n_real in self._schedule():
+            samples = [self.ds[i] for i in idxs[:n_real]]
+            yield self._assemble(samples, bucket, pt_cap, box_cap, n_real)
+
+    def __len__(self) -> int:
+        return len(self._schedule())
+
+
+def prefetch(it: Iterable, depth: int = 2) -> Iterator:
+    """Run an iterator in a background thread with a bounded queue; an
+    exception in the thread is raised in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+    err: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:
+            err.append(e)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            if err:
+                raise err[0]
+            return
+        yield item

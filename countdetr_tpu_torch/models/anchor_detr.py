@@ -1,15 +1,23 @@
-"""CountingDetr, stage 2 (countdetr_tpu/models/anchor_detr.py; reference
-2nd-stage models/anchor_detr.py:34-140, backbone.py:116-145).
+"""CountingDetr, stages 1 and 2 (countdetr_tpu/models/anchor_detr.py;
+reference 1st-stage models/anchor_detr.py:33-113, 2nd-stage
+models/anchor_detr.py:34-140, backbone.py:116-145).
 
-backbone C5 -> exemplar feature aggregation (the feature at each exemplar
-box's centre, averaged, modulates the map channel-wise; concat -> 4096 ch)
--> 1x1 aggr_input_proj + masked GroupNorm(32) -> transformer with the grid
-prior and the Laplace variance head. Outputs {pred_logits, pred_boxes,
-pred_vars, reference_points}, float32.
+Stage 1, the pseudo-GT regressor: backbone C5 -> 1x1 input_proj + masked
+GroupNorm(32) -> transformer with the defined prior (the given points are
+the reference points; invalid ones are masked in the decoder's
+self-attention). Outputs {pred_logits, pred_points, pred_wh}, float32.
+
+Stage 2, the detector: backbone C5 -> exemplar feature aggregation (the
+feature at each exemplar box's centre, averaged, modulates the map
+channel-wise; concat -> 4096 ch) -> 1x1 aggr_input_proj + masked
+GroupNorm(32) -> transformer with the grid prior and the Laplace variance
+head. Outputs {pred_logits, pred_boxes, pred_vars, reference_points},
+float32.
 
 Module names follow the reference torch model (``backbone.body.*``,
-``aggr_input_proj.0.{0,1}.*``, ``transformer.*``), so a state_dict maps to
-and from the JAX package's params by name (weights.py).
+``input_proj.0.{0,1}.*`` / ``aggr_input_proj.0.{0,1}.*``,
+``transformer.*``), so a state_dict maps to and from the JAX package's
+params by name (weights.py).
 """
 
 from __future__ import annotations
@@ -117,22 +125,31 @@ def exemplar_aggregate(feat: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
 
 
 class CountingDetr(nn.Module):
-    """The stage-2 counting detector.
+    """The counting detector of ``cfg.stage``.
 
-    forward(images, pad_mask, exemplar_boxes):
+    forward(images, pad_mask, *prior):
       images (B, H, W, 3) or s2d-packed (B, H/2, W/2, 12), raw uint8 or
         normalized float;
       pad_mask (B, H, W) bool, True on padding;
-      exemplar_boxes (B, K, 4) normalized xyxy.
+      prior: stage 1 (points (B, P, 2) normalized cx, cy, points_valid
+        (B, P) bool); stage 2 (exemplar_boxes (B, K, 4) normalized xyxy,).
     """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         unsupported = []
-        if cfg.stage != 2 or not (cfg.exemplar_aggregation and cfg.with_variance_head):
-            unsupported.append("stage 2 with exemplar aggregation and the variance head")
-        if cfg.spatial_prior != "grid":
-            unsupported.append("the grid spatial prior")
+        if cfg.stage == 1:
+            if (cfg.spatial_prior != "defined" or cfg.exemplar_aggregation
+                    or cfg.with_variance_head):
+                unsupported.append("stage 1 with the defined spatial prior, no exemplar "
+                                   "aggregation and no variance head")
+        elif cfg.stage == 2:
+            if (cfg.spatial_prior != "grid" or not cfg.exemplar_aggregation
+                    or not cfg.with_variance_head):
+                unsupported.append("stage 2 with the grid spatial prior, exemplar "
+                                   "aggregation and the variance head")
+        else:
+            unsupported.append("stages 1 and 2")
         if cfg.num_feature_levels != 1 or cfg.masks or cfg.attention_type != "RCDA":
             unsupported.append("one feature level, RCDA attention, no mask head")
         if cfg.aux_loss or cfg.backbone != "resnet50" or cfg.activation != "relu":
@@ -143,10 +160,13 @@ class CountingDetr(nn.Module):
         dt = getattr(torch, cfg.compute_dtype)
         self.backbone = nn.ModuleDict(
             {"body": ResNetBackbone(dilation=cfg.dilation, compute_dtype=dt)})
-        self.aggr_input_proj = nn.ModuleList([InputProj(2 * 2048, cfg.hidden_dim)])
+        if cfg.stage == 1:
+            self.input_proj = nn.ModuleList([InputProj(2048, cfg.hidden_dim)])
+        else:
+            self.aggr_input_proj = nn.ModuleList([InputProj(2 * 2048, cfg.hidden_dim)])
         self.transformer = Transformer(cfg)
 
-    def forward(self, images, pad_mask, exemplar_boxes):
+    def forward(self, images, pad_mask, *prior):
         if images.dtype == torch.uint8:
             images = normalize_uint8(images)
             # raw pads are 0, which normalizes to -mean/std: re-zero them so
@@ -157,6 +177,16 @@ class CountingDetr(nn.Module):
         feat = self.backbone["body"](images, pad_mask)
         h, w = feat.shape[1], feat.shape[2]
         fmask = downsample_mask(pad_mask, h, w)
+        if self.cfg.stage == 1:
+            points, points_valid = prior
+            src = self.input_proj[0](feat, ~fmask)
+            tr = self.transformer(src, fmask, points, points_valid)
+            return {
+                "pred_logits": tr["cls"],
+                "pred_points": tr["coord"][..., :2],
+                "pred_wh": tr["coord"][..., 2:],
+            }
+        (exemplar_boxes,) = prior
         feat = exemplar_aggregate(feat, exemplar_boxes)
         src = self.aggr_input_proj[0](feat, ~fmask)
         B = images.shape[0]
@@ -180,7 +210,8 @@ def init_weights_(model: CountingDetr, g: torch.Generator):
         if isinstance(m, (Conv, StemConv)):
             fan_in = m.weight[0].numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=g) / math.sqrt(fan_in))
-    conv = model.aggr_input_proj[0][0]
+    proj = model.input_proj if model.cfg.stage == 1 else model.aggr_input_proj
+    conv = proj[0][0]
     cout, cin = conv.weight.shape[:2]
     limit = math.sqrt(6.0 / (cin + cout))
     conv.weight.copy_((torch.rand(conv.weight.shape, generator=g) * 2 - 1) * limit)

@@ -25,8 +25,10 @@ from countdetr_tpu_torch.ops import rcda as rcda_ops
 from countdetr_tpu_torch.ops.boxes import inverse_sigmoid
 from countdetr_tpu_torch.ops.posemb import mask2pos, pos2posemb1d, pos2posemb2d
 
-# The bbox head's wh bias (reference transformer.py:95) lives in the last
-# layer's bias, as in the reference; weights.py adds it to JAX params.
+# The bbox head's wh bias (reference transformer.py:95), added to the head's
+# output outside the parameter, as the JAX package does
+# (countdetr_tpu/models/transformer.py): the last layer's own bias starts at
+# zero, so weight decay never pulls on the -2.
 WH_BIAS = (0.0, 0.0, -2.0, -2.0)
 
 
@@ -67,11 +69,13 @@ def adapt_pos(d_model):
 
 
 class RCDAAttention(nn.Module):
-    """Packed (5E, E) RCDA parameters, as the reference stores them."""
+    """Packed (5E, E) RCDA parameters, as the reference stores them;
+    ``variant`` is the core's formulation (ModelConfig.rcda_variant)."""
 
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, variant="v3"):
         super().__init__()
         self.num_heads = num_heads
+        self.variant = variant
         self.in_proj_weight = nn.Parameter(torch.empty(5 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(5 * d_model))
         self.out_proj = Linear(d_model, d_model)
@@ -82,7 +86,7 @@ class RCDAAttention(nn.Module):
             query_row, query_col, key_row, key_col, value,
             self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
             self.out_proj.weight.to(dt), self.out_proj.bias.to(dt),
-            self.num_heads, key_padding_mask,
+            self.num_heads, key_padding_mask, self.variant,
         )
 
 
@@ -121,9 +125,9 @@ class FFN(nn.Module):
 class EncoderLayer(nn.Module):
     """RCDA self-attention over the feature grid (reference transformer.py:217-278)."""
 
-    def __init__(self, d_model, d_ffn, num_heads):
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3"):
         super().__init__()
-        self.self_attn = RCDAAttention(d_model, num_heads)
+        self.self_attn = RCDAAttention(d_model, num_heads, variant)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.ffn = FFN(d_model, d_ffn)
 
@@ -138,11 +142,11 @@ class DecoderLayer(nn.Module):
     """Query self-attention (MHA) + RCDA cross-attention
     (reference transformer.py:315-407)."""
 
-    def __init__(self, d_model, d_ffn, num_heads):
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3"):
         super().__init__()
         self.self_attn = MHAttention(d_model, num_heads)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
-        self.cross_attn = RCDAAttention(d_model, num_heads)
+        self.cross_attn = RCDAAttention(d_model, num_heads, variant)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.ffn = FFN(d_model, d_ffn)
 
@@ -161,10 +165,12 @@ class Transformer(nn.Module):
     """Encoder-decoder over one feature level with the shared heads.
 
     forward(src (B, H, W, C), pad_mask (B, H, W) bool, reference_points
-    (B, P, 2)) returns the last decoder layer's
+    (B, P, 2), query_valid (B, P) bool or None) returns the last decoder
+    layer's
       cls (B, L, num_classes), coord (B, L, 4) sigmoid cxcywh,
       var (B, L, 2) when the variance head is on, reference_points (B, L, 2),
-    all float32, with L = P * num_query_pattern.
+    all float32, with L = P * num_query_pattern. Queries that are not
+    valid are masked as keys of the decoder's self-attention.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -176,15 +182,19 @@ class Transformer(nn.Module):
         self.adapt_pos1d = adapt_pos(C)
         self.adapt_pos2d = adapt_pos(C)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads) for _ in range(cfg.enc_layers))
+            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant)
+            for _ in range(cfg.enc_layers))
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads) for _ in range(cfg.dec_layers))
+            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant)
+            for _ in range(cfg.dec_layers))
         self.cls_embed = nn.ModuleList([Linear(C, cfg.num_classes)])
         self.bbox_embed = nn.ModuleList([MLP(C, C, 4, 3)])
+        # a constant, not a parameter: it moves with the model, is not saved
+        self.register_buffer("wh_bias", torch.tensor(WH_BIAS), persistent=False)
         if cfg.with_variance_head:
             self.bbox_variance = nn.ModuleList([MLP(C, C, 2, 3)])
 
-    def forward(self, src, pad_mask, reference_points):
+    def forward(self, src, pad_mask, reference_points, query_valid=None):
         cfg = self.cfg
         dt = self.compute_dtype
         src = src.to(dt)
@@ -196,6 +206,7 @@ class Transformer(nn.Module):
         # pattern embeddings tiled over positions, pattern-major
         tgt = self.pattern.weight[None, :, None, :].to(dt).expand(B, npat, P, C).reshape(B, L, C)
         ref = reference_points.repeat(1, npat, 1)
+        query_pad = None if query_valid is None else ~query_valid.repeat(1, npat)
 
         pos_col, pos_row = mask2pos(pad_mask)
         posemb_row = self.adapt_pos1d(pos2posemb1d(pos_row, C).to(dt))  # (B, W, C)
@@ -210,9 +221,9 @@ class Transformer(nn.Module):
         out = tgt
         for layer in self.decoder_layers:
             out = layer(out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
-                        posemb_row, posemb_col)
+                        posemb_row, posemb_col, query_pad)
 
-        delta = self.bbox_embed[0](out).float()
+        delta = self.bbox_embed[0](out).float() + self.wh_bias
         xy = delta[..., :2] + inverse_sigmoid(ref)
         result = {
             "cls": self.cls_embed[0](out).float(),
@@ -249,7 +260,7 @@ def init_transformer_(tr: Transformer, g: torch.Generator):
     tr.cls_embed[0].bias.fill_(-math.log((1 - 0.01) / 0.01))
     last = tr.bbox_embed[0].layers[-1]
     last.weight.zero_()
-    last.bias.copy_(torch.tensor(WH_BIAS))
+    last.bias.zero_()  # the wh bias is added in forward
     if tr.cfg.with_variance_head:
         last = tr.bbox_variance[0].layers[-1]
         last.weight.fill_(0.01)

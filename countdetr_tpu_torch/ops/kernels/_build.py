@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("rcda", "mha", "auction")
+SOURCES = ("rcda", "rcda_rank1", "mha", "auction")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -10,6 +10,12 @@ q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
 (B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
 dtype. A row whose keys are all masked gets the uniform softmax.
 
+Key lengths: the bfloat16 kernel keeps a head's keys in shared memory when
+they fit and streams them in tiles otherwise, so it takes every stage-1
+point tier (S up to ~47k at head dim 32); the float32 kernel (parity only)
+keeps a row of logits per query in shared memory and stops at ~1.6k keys.
+``max_keys`` gives the limit; past it the wrapper raises.
+
 Where a gradient is wanted, the core runs inside ``MHACore``, an autograd
 Function whose backward recomputes through the plain core (the JAX
 package's ``mha_core_fused`` backward); the bias gets no gradient.
@@ -18,6 +24,7 @@ package's ``mha_core_fused`` backward); the bias gets no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,6 +32,7 @@ from countdetr_tpu_torch.ops.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
+SMEM_LIMIT = 232448  # shared-memory bytes a block may use on sm_90
 
 # Kernel launches since the counter was last reset (by whoever reads it).
 launches = 0
@@ -53,7 +61,25 @@ def _lib() -> ctypes.CDLL:
         lib.mha_forward.restype = ctypes.c_int
         lib.mha_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.mha_smem_bytes.restype = ctypes.c_longlong
+        lib.mha_streamed.argtypes = [ctypes.c_int] * 2
+        lib.mha_streamed.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def max_keys(dtype: torch.dtype, head_dim: int) -> int:
+    """The longest key length the kernel of ``dtype`` takes at ``head_dim``:
+    the largest S whose block fits shared memory (a bisection over the
+    kernel's own ``mha_smem_bytes``; fitting is monotone in S)."""
+    smem = _lib().mha_smem_bytes
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem(DTYPE_CODES[dtype], head_dim, mid) <= SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def _check(q, k, v, bias, num_heads):
@@ -90,10 +116,11 @@ def _mha_forward(q, k, v, bias, num_heads):
     _check(q, k, v, bias, num_heads)
     B, L, E = q.shape
     S = k.shape[1]
+    limit = max_keys(q.dtype, E // num_heads)
+    if S > limit:
+        raise ValueError(f"mha: the {q.dtype} kernel takes S <= {limit} keys at head dim "
+                         f"{E // num_heads}, got S={S}")
     lib = _lib()
-    smem = lib.mha_smem_bytes(DTYPE_CODES[q.dtype], E // num_heads, S)
-    if smem > 232448:
-        raise ValueError(f"mha: S={S} needs {smem} B of shared memory per block")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mha_forward(

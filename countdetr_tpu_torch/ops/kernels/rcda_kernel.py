@@ -1,9 +1,16 @@
-"""The RCDA attention core: a hand-written CUDA kernel and its plain version.
+"""The RCDA attention core: two hand-written CUDA kernels and their plain
+versions, one pair per variant.
 
-``rcda_core`` is what the model calls. On a CUDA tensor it launches the
-kernel in ``csrc/rcda.cu`` (the counterpart of the JAX package's Pallas
-``fused_rcda``); on a CPU tensor it runs ``rcda_core_plain``. There is no
-fallback between the two: a CUDA call that the kernel cannot take raises.
+``rcda_core`` is what the model calls; ``variant`` picks the formulation
+(``ModelConfig.rcda_variant``, the JAX package's COUNTDETR_PALLAS_VARIANT):
+  "v3"    the two-stage combine: ``csrc/rcda.cu`` (the counterpart of the
+          JAX package's Pallas ``fused_rcda``) and ``rcda_core_plain``;
+  "rank1" one contraction over H*W of the rank-1 probabilities:
+          ``csrc/rcda_rank1.cu`` (``fused_rcda_rank1``) and
+          ``rcda_rank1_core_plain``.
+On a CUDA tensor it launches the variant's kernel; on a CPU tensor it runs
+the variant's plain version. There is no fallback between the two: a CUDA
+call that the kernel cannot take raises.
 
 Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   q_row, q_col : (B, L, E), pre-scaled by d**-0.5
@@ -15,9 +22,9 @@ Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
 Returns (B, L, E) in q's dtype.
 
 Where a gradient is wanted, the core runs inside ``RCDACore``, an autograd
-Function whose backward recomputes through the plain core (the JAX
-package's ``_rcda_pallas_bwd``): only the inputs are saved, no
-(B, n, L, H, d) intermediate. The biases get no gradient.
+Function whose backward recomputes through the two-stage plain core for
+either variant (the JAX package's ``_rcda_pallas_bwd``): only the inputs
+are saved, no (B, n, L, H, d) intermediate. The biases get no gradient.
 """
 
 from __future__ import annotations
@@ -26,14 +33,19 @@ import ctypes
 
 import torch
 
+from countdetr_tpu_torch.config import RCDA_VARIANTS
 from countdetr_tpu_torch.ops.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
-MAX_AXIS_BF16 = 64  # the tensor-core path holds a_row for W <= 64 in registers
+# H, W limit of the tensor-core paths (a_row held in registers), and of
+# the rank-1 kernel in both dtypes
+MAX_AXIS = 64
 
-# Kernel launches since the counter was last reset (by whoever reads it).
+# Kernel launches since the counter was last reset (by whoever reads it):
+# csrc/rcda.cu and csrc/rcda_rank1.cu.
 launches = 0
+rank1_launches = 0
 
 
 def rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
@@ -59,20 +71,51 @@ def rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads
     return out.reshape(B, L, E)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rcda")
-    if lib.rcda_forward.argtypes is None:
-        lib.rcda_forward.argtypes = (
+def rcda_rank1_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+    """Plain PyTorch rank-1 RCDA core, the math of the JAX package's
+    ``_rcda_rank1_kernel``: f32 scores and softmaxes, neither rounded;
+    P[l, h, w] = a_col[l, h] * a_row[l, w] in f32, then cast to v's dtype;
+    one contraction over H*W with f32 accumulation, cast to q's dtype.
+    (``rcda_core_plain`` instead rounds each probability map to v's dtype
+    on its own.)"""
+    B, L, E = q_row.shape
+    d = E // num_heads
+
+    def heads(x):
+        return x.reshape(*x.shape[:-1], num_heads, d)
+
+    qr, qc = heads(q_row).float(), heads(q_col).float()
+    kr, kc = heads(k_row).float(), heads(k_col).float()
+    attn_row = torch.einsum("blnd,bwnd->bnlw", qr, kr) + bias_row.float()[:, None, None, :]
+    attn_col = torch.einsum("blnd,bhnd->bnlh", qc, kc) + bias_col.float()[:, None, None, :]
+    attn_row = torch.softmax(attn_row, dim=-1)
+    attn_col = torch.softmax(attn_col, dim=-1)
+    p = (attn_col[..., :, None] * attn_row[..., None, :]).to(v.dtype)  # (B, n, L, H, W)
+    out = torch.einsum("bnlhw,bhwnd->blnd", p.float(), heads(v).float())
+    return out.reshape(B, L, E).to(q_row.dtype)
+
+
+PLAIN = {"v3": rcda_core_plain, "rank1": rcda_rank1_core_plain}
+SOURCES = {"v3": "rcda", "rank1": "rcda_rank1"}
+
+
+def _lib(variant: str):
+    """The variant's (forward, smem_bytes) C entry points."""
+    name = SOURCES[variant]
+    lib = _build.load(name)
+    fwd, smem = getattr(lib, f"{name}_forward"), getattr(lib, f"{name}_smem_bytes")
+    if fwd.argtypes is None:
+        fwd.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
-        lib.rcda_forward.restype = ctypes.c_int
-        lib.rcda_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.rcda_smem_bytes.restype = ctypes.c_longlong
-    return lib
+        fwd.restype = ctypes.c_int
+        smem.argtypes = [ctypes.c_int] * 4
+        smem.restype = ctypes.c_longlong
+    return fwd, smem
 
 
-def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant):
     tensors = dict(q_row=q_row, q_col=q_col, k_row=k_row, k_col=k_col, v=v,
                    bias_row=bias_row, bias_col=bias_col)
     for name, t in tensors.items():
@@ -97,47 +140,58 @@ def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
             raise ValueError(f"rcda: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
     if E % num_heads or E // num_heads not in HEAD_DIMS:
         raise ValueError(f"rcda: head dim {E}/{num_heads} not in {HEAD_DIMS}")
-    if q_row.dtype == torch.bfloat16 and max(H, W) > MAX_AXIS_BF16:
-        raise ValueError(f"rcda: bfloat16 kernel takes H, W <= {MAX_AXIS_BF16}, got {H}, {W}")
+    if max(H, W) > MAX_AXIS and (variant == "rank1" or q_row.dtype == torch.bfloat16):
+        raise ValueError(f"rcda: the {variant} {q_row.dtype} kernel takes H, W <= {MAX_AXIS}, "
+                         f"got {H}, {W}")
 
 
-def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    global launches
+def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
+                  variant="v3"):
+    """The variant's kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    global launches, rank1_launches
+    if variant not in RCDA_VARIANTS:
+        raise ValueError(f"rcda: variant must be one of {RCDA_VARIANTS}, got {variant!r}")
     if q_row.device.type == "cpu":
-        return rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+        return PLAIN[variant](q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
     if q_row.device.type != "cuda":
         raise ValueError(f"rcda: no kernel for device {q_row.device}")
-    _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+    _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant)
     B, L, E = q_row.shape
     H, W = v.shape[1], v.shape[2]
-    lib = _lib()
-    smem = lib.rcda_smem_bytes(DTYPE_CODES[q_row.dtype], E // num_heads, H, W)
+    forward, smem_bytes = _lib(variant)
+    smem = smem_bytes(DTYPE_CODES[q_row.dtype], E // num_heads, H, W)
     if smem > 232448:
         raise ValueError(f"rcda: H={H}, W={W} need {smem} B of shared memory per block")
     out = torch.empty_like(q_row)
     stream = torch.cuda.current_stream(q_row.device).cuda_stream
-    err = lib.rcda_forward(
+    err = forward(
         DTYPE_CODES[q_row.dtype],
         q_row.data_ptr(), q_col.data_ptr(), k_row.data_ptr(), k_col.data_ptr(),
         v.data_ptr(), bias_row.data_ptr(), bias_col.data_ptr(), out.data_ptr(),
         B, L, H, W, E, num_heads, stream,
     )
     if err != 0:
-        raise RuntimeError(f"rcda kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{SOURCES[variant]} kernel launch failed: CUDA error {err}")
+    if variant == "rank1":
+        rank1_launches += 1
+    else:
+        launches += 1
     return out
 
 
 class RCDACore(torch.autograd.Function):
-    """Forward: ``_rcda_forward``. Backward: ``torch.autograd.grad`` of the
-    plain core, recomputed from the saved inputs."""
+    """Forward: ``_rcda_forward`` of the variant. Backward:
+    ``torch.autograd.grad`` of the two-stage plain core, recomputed from the
+    saved inputs, for either variant."""
 
     @staticmethod
-    def forward(ctx, q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
+    def forward(ctx, q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
+                variant="v3"):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q_row, q_col, k_row, k_col, v, bias_row, bias_col)
-        return _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+        return _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
+                             variant)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -148,13 +202,14 @@ class RCDACore(torch.autograd.Function):
         wanted = [x for x in xs if x.requires_grad]
         got = iter(torch.autograd.grad(out, wanted, grad_out))
         grads = [next(got) if x.requires_grad else None for x in xs]
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
-def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
-    """The RCDA core: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors; differentiable in q_row, q_col, k_row, k_col and v."""
-    args = (q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
+def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant="v3"):
+    """The RCDA core of ``variant``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors; differentiable in q_row, q_col, k_row,
+    k_col and v."""
+    args = (q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant)
     if torch.is_grad_enabled() and any(x.requires_grad for x in args[:5]):
         return RCDACore.apply(*args)
     return _rcda_forward(*args)

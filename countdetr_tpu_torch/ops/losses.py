@@ -1,6 +1,7 @@
-"""Stage-2 losses and matching cost (countdetr_tpu/ops/losses.py; reference
-2nd-stage anchor_detr.py:143-367 SetCriterion, matcher.py:197-247,
-segmentation.py:198-223).
+"""Losses of both stages and the stage-2 matching cost
+(countdetr_tpu/ops/losses.py; reference 1st-stage anchor_detr.py:317-337
+BoundingBoxCriterion, 2nd-stage anchor_detr.py:143-367 SetCriterion,
+matcher.py:197-247, segmentation.py:198-223).
 
 Everything works on fixed-shape padded tensors with validity masks, so a
 batch needs no per-image loop and no host sync.
@@ -27,6 +28,28 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     if alpha >= 0:
         loss = (alpha * targets + (1.0 - alpha) * (1.0 - targets)) * loss
     return loss
+
+
+def stage1_criterion(
+    pred_wh: torch.Tensor,  # (B, Q, 2) normalized predicted w, h per point query
+    tgt_points: torch.Tensor,  # (B, Q, 2) normalized point centres (the anchors)
+    tgt_whs: torch.Tensor,  # (B, Q, 2) normalized exemplar w, h
+    valid: torch.Tensor,  # (B, Q) bool, real queries
+) -> Dict[str, torch.Tensor]:
+    """Unweighted stage-1 losses; the queries are the annotated points, so
+    there is no matching. loss_wh is the L1 mean over valid elements;
+    loss_giou sums 1 - GIoU over valid queries of the two boxes that share
+    the point as centre, over their count. The caller weighs
+    {loss_wh: 1, loss_giou: 0.4}."""
+    v = valid.to(pred_wh.dtype)
+    n = v.sum().clamp(min=1.0)
+    loss_wh = ((pred_wh - tgt_whs).abs() * v[..., None]).sum() / (2.0 * n).clamp(min=1.0)
+    src_boxes = torch.cat([tgt_points, pred_wh], dim=-1)
+    tgt_boxes = torch.cat([tgt_points, tgt_whs], dim=-1)
+    giou = box_ops.generalized_box_iou_aligned(
+        box_ops.box_cxcywh_to_xyxy(src_boxes), box_ops.box_cxcywh_to_xyxy(tgt_boxes))
+    loss_giou = ((1.0 - giou) * v).sum() / n
+    return {"loss_wh": loss_wh, "loss_giou": loss_giou}
 
 
 class MatchedTargets(NamedTuple):

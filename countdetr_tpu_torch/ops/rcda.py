@@ -6,7 +6,8 @@ RCDA: one packed (5E, E) input projection [q_row; q_col; k_row; k_col; v];
 projected keys are axis-averaged over the valid rows/columns only; two 1-D
 attentions per head; out[q] = sum_h sum_w A_col[q,h] A_row[q,w] v[h,w];
 one (E, E) output projection. The cores run the CUDA kernel for CUDA
-tensors and the plain version for CPU tensors (ops/kernels/).
+tensors and the plain version for CPU tensors (ops/kernels/); ``variant``
+picks the RCDA core's formulation, "v3" (two-stage) or "rank1".
 
 Layouts are the JAX package's: (B, L, E) queries or (B, H, W, E) grid
 queries, (B, H, W, E) keys and values, (B, H, W) padding masks (True = pad).
@@ -35,6 +36,7 @@ def rcda_attention(
     out_proj_bias: torch.Tensor,  # (E,)
     num_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, H, W) True = pad
+    variant: str = "v3",
 ) -> torch.Tensor:
     """Returns (B, L, E) for flat queries, (B, H, W, E) for grid queries,
     which are flattened to (B, H*W, E) at the core's boundary."""
@@ -78,7 +80,7 @@ def rcda_attention(
 
     out = rcda_core(
         q_row.contiguous(), q_col.contiguous(), k_row.contiguous(),
-        k_col.contiguous(), v.contiguous(), bias_row, bias_col, num_heads,
+        k_col.contiguous(), v.contiguous(), bias_row, bias_col, num_heads, variant,
     )
     out = F.linear(out, out_proj_weight, out_proj_bias)
     return out.reshape(grid_shape) if grid_shape is not None else out

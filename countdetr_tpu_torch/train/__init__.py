@@ -1,1 +1,2 @@
-"""Stage-2 training: optimizer, schedule and the train step."""
+"""Training of both stages: optimizer, schedule, train steps and the
+pseudo-label engine."""

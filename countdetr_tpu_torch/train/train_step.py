@@ -1,22 +1,27 @@
-"""The stage-2 train step (countdetr_tpu/train/train_step.py; reference
-2nd-stage engine.py:14-67).
+"""The train steps of both stages (countdetr_tpu/train/train_step.py;
+reference 1st-stage engine.py:27-75, 2nd-stage engine.py:14-67).
 
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.train.train_step import Trainer
     trainer = Trainer(stage2_config(compute_dtype="bfloat16"), TrainConfig())
     metrics = trainer.step(batch)  # 0-d tensors on the card
 
-A step is forward, matching on the device (the auction kernel, on detached
-outputs), the stage-2 losses, backward (through the RCDA and MHA kernels'
-autograd Functions), clipping, the optimizer update and the LR schedule.
-Nothing in it waits for the card, so steps queue back to back; the
-non-finite-loss count ``bad_steps`` stays on the device too.
+``cfg.stage`` picks the loss. Stage 1 (``stage1_config``): the forward on
+the exemplar centres as queries and the wh losses against their w, h; no
+matching. Stage 2: the forward, matching on the device (the auction kernel,
+on detached outputs) and the stage-2 losses. Then backward (through the
+RCDA and MHA kernels' autograd Functions), clipping, the optimizer update
+and the LR schedule. Nothing in a step waits for the card, so steps queue
+back to back; the non-finite-loss count ``bad_steps`` stays on the device
+too.
 
 Batches are dicts in the Batcher's format (numpy or tensors): ``images``
-s2d-packed uint8 (B, H/2, W/2, 12), ``pad_mask`` (B, H, W) bool,
-``exemplar_boxes`` (B, K, 4) xyxy, ``boxes`` (B, T, 4) cxcywh,
-``boxes_valid`` (B, T) bool, optional ``labels`` (B, T) (default 0) and
-``batch_valid`` (B,) bool.
+s2d-packed uint8 (B, H/2, W/2, 12), ``pad_mask`` (B, H, W) bool, optional
+``batch_valid`` (B,) bool, and
+  stage 1: ``points`` (B, P, 2) cx, cy, ``points_valid`` (B, P) bool,
+    ``whs`` (B, P, 2);
+  stage 2: ``exemplar_boxes`` (B, K, 4) xyxy, ``boxes`` (B, T, 4) cxcywh,
+    ``boxes_valid`` (B, T) bool, optional ``labels`` (B, T) (default 0).
 """
 
 from __future__ import annotations
@@ -37,20 +42,44 @@ from countdetr_tpu_torch.train.optimizer import (
 
 BATCH_KEYS = ("images", "pad_mask", "exemplar_boxes", "boxes", "boxes_valid",
               "labels", "batch_valid")
+STAGE1_BATCH_KEYS = ("images", "pad_mask", "points", "points_valid", "whs", "batch_valid")
 
 
-def prepare_stage2_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """The batch's tensors on ``device``, with ``labels`` defaulting to 0."""
+def _to_device(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
     out = {}
-    for key in BATCH_KEYS:
+    for key in keys:
         if batch.get(key) is None:
             continue
         x = batch[key]
         x = torch.from_numpy(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
         out[key] = x.to(device, non_blocking=True)
+    return out
+
+
+def prepare_stage1_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The stage-1 batch's tensors on ``device``."""
+    return _to_device(batch, STAGE1_BATCH_KEYS, device)
+
+
+def prepare_stage2_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The batch's tensors on ``device``, with ``labels`` defaulting to 0."""
+    out = _to_device(batch, BATCH_KEYS, device)
     if "labels" not in out:
         out["labels"] = torch.zeros(out["boxes"].shape[:2], dtype=torch.long, device=device)
     return out
+
+
+def stage1_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted stage-1 loss of a prepared batch: (total, the unweighted
+    parts with ``loss``)."""
+    out = model(batch["images"], batch["pad_mask"], batch["points"], batch["points_valid"])
+    parts = loss_ops.stage1_criterion(out["pred_wh"], batch["points"], batch["whs"],
+                                      batch["points_valid"])
+    total = (train_cfg.wh_loss_coef * parts["loss_wh"]
+             + train_cfg.stage1_giou_coef * parts["loss_giou"])
+    parts["loss"] = total
+    return total, parts
 
 
 def match_outputs(pred_logits, pred_boxes, batch, train_cfg: TrainConfig) -> MatchedTargets:
@@ -104,14 +133,27 @@ class Trainer:
         self.scheduler = build_scheduler(self.optimizer, train_cfg, steps_per_epoch)
         self.bad_steps = torch.zeros((), dtype=torch.int32, device=self.device)
 
+    def _loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The stage's weighted loss of a raw batch and its parts."""
+        if self.cfg.stage == 1:
+            return stage1_loss(self.model, prepare_stage1_batch(batch, self.device),
+                               self.train_cfg)
+        total, parts, _ = stage2_loss(self.model, prepare_stage2_batch(batch, self.device),
+                                      self.train_cfg)
+        return total, parts
+
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One update; returns the losses, ``loss`` and ``grad_norm`` (the
         trainable parameters' gradient norm before clipping) as 0-d tensors
         on the device."""
-        batch = prepare_stage2_batch(batch, self.device)
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics, _ = stage2_loss(self.model, batch, self.train_cfg)
+        total, metrics = self._loss(batch)
         total.backward()
+        for p in self.params:
+            # a tensor the loss does not reach (the cls head in stage 1)
+            # still decays, as in the JAX package's optimizer
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         metrics["grad_norm"] = clip_gradients(self.params, self.train_cfg.clip_max_norm)
         self.optimizer.step()
         self.scheduler.step()
@@ -121,6 +163,4 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The losses of a batch, without an update."""
-        batch = prepare_stage2_batch(batch, self.device)
-        _, metrics, _ = stage2_loss(self.model, batch, self.train_cfg)
-        return metrics
+        return self._loss(batch)[1]

@@ -2,12 +2,17 @@
 
 ``params_from_jax`` is the counterpart of the importer in
 countdetr_tpu/train/checkpoints.py (``torch_state_dict_to_params``): it
-takes the flax variables of a stage-2 CountingDetr as numpy arrays
-(``{"params": {...}}``) and returns the port's state_dict, whose keys are
-the reference torch model's. Conv kernels go HWIO -> OIHW; the stem stays
-the reference's (64, 3, 7, 7); the bbox head's last bias gains the wh bias
-[0, 0, -2, -2] that the JAX forward adds explicitly. Every JAX parameter is
-used; one the mapping does not know raises.
+takes the flax variables of a stage-1 or stage-2 CountingDetr as numpy
+arrays (``{"params": {...}}``) and returns the port's state_dict, whose
+keys are the reference torch model's. Conv kernels go HWIO -> OIHW; the
+stem stays the reference's (64, 3, 7, 7). Every JAX parameter is used; one
+the mapping does not know raises.
+
+The bbox head's wh bias [0, 0, -2, -2] is added in the forward, outside the
+parameter, in the port as in the JAX package, so the head's last bias maps
+as it is. The reference's .pth files fold the wh bias into that bias
+(reference transformer.py:95): an importer of them subtracts it, as
+countdetr_tpu/train/checkpoints.py does, and an exporter adds it.
 """
 
 from __future__ import annotations
@@ -17,15 +22,13 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from countdetr_tpu_torch.models.transformer import WH_BIAS
-
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     p = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr, conv=False):
-        a = np.asarray(arr, dtype=np.float32)
+        a = np.array(arr, dtype=np.float32)  # a copy: the tensor owns writable memory
         if conv:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         sd[key] = torch.from_numpy(np.ascontiguousarray(a))
@@ -53,13 +56,10 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         linear(f"{prefix}.linear2", m["linear2"])
         norm(f"{prefix}.norm2", m["norm2"])
 
-    def mlp(prefix, m, last_bias=None):
+    def mlp(prefix, m):
         for name, layer in m.items():
             j = int(name.split("_")[1])
             linear(f"{prefix}.layers.{j}", layer)
-        if last_bias is not None:
-            key = f"{prefix}.layers.{len(m) - 1}.bias"
-            sd[key] = sd[key] + torch.tensor(last_bias, dtype=torch.float32)
 
     def unknown(where, name):
         raise KeyError(f"params_from_jax: no mapping for {where}/{name}")
@@ -87,10 +87,12 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             unknown("backbone", name)
 
-    proj = p["aggr_input_proj"]
-    put("aggr_input_proj.0.0.weight", proj["conv"]["kernel"], conv=True)
-    put("aggr_input_proj.0.0.bias", proj["conv"]["bias"])
-    norm("aggr_input_proj.0.1", proj["norm"])
+    # stage 1 projects C5 (input_proj), stage 2 the aggregated map
+    proj_name = "input_proj" if "input_proj" in p else "aggr_input_proj"
+    proj = p[proj_name]
+    put(f"{proj_name}.0.0.weight", proj["conv"]["kernel"], conv=True)
+    put(f"{proj_name}.0.0.bias", proj["conv"]["bias"])
+    norm(f"{proj_name}.0.1", proj["norm"])
 
     for name, m in p["transformer"].items():
         pre = f"transformer.{name}"
@@ -113,14 +115,12 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             ffn(f"{pre}.ffn", m["ffn"])
         elif name == "cls_embed":
             linear(f"{pre}.0", m)
-        elif name == "bbox_embed":
-            mlp(f"{pre}.0", m, last_bias=WH_BIAS)
-        elif name == "bbox_variance":
+        elif name in ("bbox_embed", "bbox_variance"):
             mlp(f"{pre}.0", m)
         else:
             unknown("transformer", name)
 
-    extra = set(p) - {"backbone", "aggr_input_proj", "transformer"}
+    extra = set(p) - {"backbone", proj_name, "transformer"}
     if extra:
         unknown("params", sorted(extra)[0])
     return sd

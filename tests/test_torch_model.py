@@ -24,11 +24,13 @@ from countdetr_tpu.train.checkpoints import torch_state_dict_to_params
 from countdetr_tpu_torch.config import stage2_config
 from countdetr_tpu_torch.models.anchor_detr import CountingDetr, build_model
 from countdetr_tpu_torch.models.resnet import ResNetBackbone
+from countdetr_tpu_torch.models.transformer import WH_BIAS
 from countdetr_tpu_torch.weights import params_from_jax
 
 TINY = dict(enc_layers=2, dec_layers=2, hidden_dim=32, nheads=4,
             dim_feedforward=64, num_query_position=25)
 TOL = 1e-4
+BBOX_LAST_BIAS = "transformer.bbox_embed.0.layers.2.bias"
 
 
 def tiny_configs():
@@ -74,6 +76,15 @@ def jax_model_and_params(seed=0, cfg=None):
     variables = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.asarray(packed),
                                     jnp.asarray(mask), exemplar_boxes=jnp.asarray(rects))
     return model, perturb(variables, seed)
+
+
+def reference_state_dict(model):
+    """The port's state_dict as numpy, in the reference .pth form that the
+    JAX package's importer reads: the wh bias folded into the bbox head's
+    last bias (the port, like the JAX package, adds it in the forward)."""
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    sd[BBOX_LAST_BIAS] = sd[BBOX_LAST_BIAS] + np.asarray(WH_BIAS, np.float32)
+    return sd
 
 
 def port_model(params, cfg=None):
@@ -133,11 +144,12 @@ def test_params_from_jax_fills_every_parameter(stage2_pair):
 
 
 def test_state_dict_round_trip_through_jax_importer(stage2_pair):
-    """The port's state_dict carries the reference torch keys: the JAX
-    package's own importer maps it back to the params it came from (the wh
-    bias goes in and out again, hence atol 1e-6 rather than exact)."""
+    """The port's state_dict carries the reference torch keys: with the wh
+    bias folded in as a reference .pth holds it, the JAX package's own
+    importer maps it back to the params it came from (the wh bias goes in
+    and out again, hence atol 1e-6 rather than exact)."""
     _, params, port = stage2_pair
-    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    sd = reference_state_dict(port)
     back = torch_state_dict_to_params(sd, params, strict=True)
     flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     for path, want in jax.tree_util.tree_flatten_with_path(params)[0]:

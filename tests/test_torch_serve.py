@@ -103,7 +103,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 25, names\n"
         "for n in ('train.train_step', 'train.optimizer', 'ops.matching', 'ops.losses',\n"
-        "          'ops.kernels.auction_kernel'):\n"
+        "          'ops.kernels.auction_kernel', 'train.engine', 'data.coco_io'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'countdetr_tpu')\n"
         "       or m.startswith(('jax.', 'flax.', 'countdetr_tpu.'))]\n"
@@ -124,6 +124,7 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     monkeypatch.setattr(_build, "build", no_build)
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(rcda_kernel, "launches", 0)
+    monkeypatch.setattr(rcda_kernel, "rank1_launches", 0)
     monkeypatch.setattr(mha_kernel, "launches", 0)
     monkeypatch.setattr(auction_kernel, "launches", 0)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -131,6 +132,8 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
             torch.zeros(2, 5), torch.zeros(2, 4))
     torch.testing.assert_close(rcda_kernel.rcda_core(*args, 2),
                                rcda_kernel.rcda_core_plain(*args, 2), rtol=0, atol=0)
+    torch.testing.assert_close(rcda_kernel.rcda_core(*args, 2, "rank1"),
+                               rcda_kernel.rcda_rank1_core_plain(*args, 2), rtol=0, atol=0)
     q, k, v = f(2, 9, 32), f(2, 9, 32), f(2, 9, 32)
     torch.testing.assert_close(mha_kernel.mha_core(q, k, v, torch.zeros(2, 9), 2),
                                mha_kernel.mha_core_plain(q, k, v, torch.zeros(2, 9), 2),
@@ -140,7 +143,8 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     torch.testing.assert_close(auction_kernel.auction_assign(benefit, active, eps, 100),
                                auction_kernel.auction_plain(benefit, active, eps, 100),
                                rtol=0, atol=0)
-    assert rcda_kernel.launches == 0 and mha_kernel.launches == 0
+    assert rcda_kernel.launches == 0 and rcda_kernel.rank1_launches == 0
+    assert mha_kernel.launches == 0
     assert auction_kernel.launches == 0
     with pytest.raises(ValueError):
         auction_kernel.auction_assign(benefit.to("meta"), active.to("meta"), eps.to("meta"), 100)
