@@ -4,26 +4,29 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each printed as one JSON line:
-  device    the card (nvidia-smi name and power limit) and the kernel build,
-            one nvcc per CUDA source (rcda, rcda_rank1, mha, auction), all
-            started together;
+  device    the card (nvidia-smi name and power limit), its SM count and
+            maximum SM clock (the exponential rate of the bound), the kernel
+            build, one nvcc per CUDA source (rcda, rcda_rank1, mha, auction),
+            all started together, and each kernel's registers, spills and
+            static shared memory from ptxas (the build logs);
   kernels   each hand-written kernel against its plain PyTorch version at
             the main paths' shapes: RCDA and MHA in bfloat16 and float32 at
             B=32 (serving) and in bfloat16 at B=8 (the train step); RCDA v3
             and rank-1 in bfloat16 and float32 at the stage-1 shapes (B=8,
             24x42, L=1008 encoder with a padded image and L=700 decoder) and
             at B=32 37x37 (L=1369, 576); MHA in bfloat16 at B=8 over the
-            pseudo-label point tiers S=700 (keys resident) and S=5600 (keys
-            streamed), one row fully masked; max error and its tolerance;
+            pseudo-label point tiers S=700 and S=5600, one row fully masked;
+            max error and its tolerance;
             the auction with tolerance 0 (assignments, rounds and bids
             identical) on the matcher's shapes: 8x576x700 transposed on
             random, DETR-shaped and degenerate costs, 576x128 (targets bid),
             2x576x5600, integer ties, eps-scaling on 128x128, an iteration
             cap that leaves -1s; kernel / plain / library times (CUDA
-            events), the least time the card could take (bytes or
-            operations), and the host scipy LAP's time for the auction; then
-            the attention kernels at a few other shapes (ragged tiles, head
-            dims 16 and 64, streamed keys), untimed;
+            events; MHA's kernel / library ratio), the least time the card
+            could take (bytes, operations or softmax exponentials), and the
+            host scipy LAP's time for the auction; then the attention kernels
+            at a few other shapes (ragged tiles, head dims 16 and 64, long
+            keys, the float32 MHA at S=1700 and 5600), untimed;
   parity    the full-width stage-2 model (ResNet-50-DC5, 6+6 layers, 576
             queries) in float32 on the card (kernels) against the same
             weights on the CPU (plain versions), one padded 592x592 image;
@@ -61,12 +64,17 @@ Phases, each printed as one JSON line:
 Then the kernels line with each path's launch counts, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
+
+    python3 chip_smoke.py --only rcda mha   # bring-up: build, then only
+                                            # these kernels' cases
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -112,9 +120,32 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(ops, nbytes, dtype):
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+# Exponentials a second: 16 ex2 a clock on each SM's special function units
+# at the card's maximum SM clock (set by ``card_rates`` from nvidia-smi)
+EX2_PER_S = None
+
+
+def card_rates():
+    """SM count, maximum SM clock (nvidia-smi clocks.max.sm) and the ex2 rate
+    they give; sets EX2_PER_S for ``bound``."""
+    global EX2_PER_S
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EX2_PER_S = 16 * sms * mhz * 1e6
+    return {"sms": sms, "max_sm_mhz": mhz, "ex2_per_s": EX2_PER_S}
+
+
+def bound(ops, nbytes, dtype, exps=0):
+    """The least milliseconds for the work, and what sets it: the operations
+    at the dtype's peak, the bytes at the memory rate, or the softmax
+    exponentials at the SFU rate."""
+    t = {"operations": ops / PEAK_OPS[dtype], "bytes": nbytes / HBM_BYTES_PER_S,
+         "exp": exps / EX2_PER_S}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
 
 
 def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3", pad=(30, 25)):
@@ -143,7 +174,8 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
     ops = 2 * B * L * E * (H + W) + 2 * B * L * E * H * W
     ops += 2 * B * L * E * H if variant == "v3" else B * n * L * H * W
     nbytes = isz * (2 * B * L * E + B * (W + H) * E + B * H * W * E + B * (W + H) + B * L * E)
-    bound_ms, bound_by = bound(ops, nbytes, dt)
+    exps = B * n * L * (H + W)  # one per score of both softmaxes
+    bound_ms, bound_by = bound(ops, nbytes, dt, exps)
     return {
         "variant": variant, "shape": {"B": B, "L": L, "H": H, "W": W, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
@@ -151,7 +183,7 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
         "kernel_ms": cuda_ms(lambda: rcda_kernel.rcda_core(*args, variant), 20),
         "plain_ms": cuda_ms(lambda: plain(*args), 5),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-        "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+        "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
     }
 
 
@@ -170,42 +202,44 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8):
     del want
     dead = got[1].float()
     uniform_err = (dead - v[1].float().mean(0, keepdim=True)).abs().max().item()
-    layout = "streamed" if mha_kernel._lib().mha_streamed(d, L) and dt == torch.bfloat16 \
-        else "resident"
     qh, kh, vh = (x.view(B, L, n, d).transpose(1, 2) for x in (q, k, v))
     mask = bias[:, None, None, :].to(dt)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     isz = torch.tensor([], dtype=dt).element_size()
     ops = 4 * B * L * L * E
     nbytes = isz * 4 * B * L * E + 4 * B * L
-    bound_ms, bound_by = bound(ops, nbytes, dt)
+    exps = B * n * L * L  # one per score
+    bound_ms, bound_by = bound(ops, nbytes, dt, exps)
+    kernel_ms = cuda_ms(lambda: mha_kernel.mha_core(q, k, v, bias, n), 20)
+    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0), 20)
     return {
-        "shape": {"B": B, "L": L, "S": L, "E": E, "heads": n}, "keys": layout,
+        "shape": {"B": B, "L": L, "S": L, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
         "max_abs_err": err, "tol": TOL[dt]["mha"],
         "finite": bool(torch.isfinite(got).all()),
         "dead_row_finite": bool(torch.isfinite(dead).all()),
         "dead_row_uniform_err": uniform_err,
-        "kernel_ms": cuda_ms(lambda: mha_kernel.mha_core(q, k, v, bias, n), 20),
+        "kernel_ms": kernel_ms,
         "plain_ms": cuda_ms(lambda: mha_kernel.mha_core_plain(q, k, v, bias, n),
                             5 if L <= 1024 else 2, warmup=1),
-        "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0), 20),
+        "library_ms": library_ms, "kernel_over_library": kernel_ms / library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+        "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
     }
 
 
-def edge_cases(rcda_kernel, mha_kernel, g):
+def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
     """The attention kernels off the main path's shapes: ragged query tiles,
-    key counts that are not a multiple of 16, W < 16, head dims 16 and 64,
-    both RCDA variants, MHA keys streamed past the resident layout's limit
-    at head dims 32 and 64 (bfloat16; the float32 kernel stops short of
-    them and must raise); each against its plain version, untimed."""
+    key counts that are not a multiple of 16 or of the key tile, W < 16, head
+    dims 16 and 64, both RCDA variants, MHA over long keys in both dtypes
+    (the float32 kernel at S=1700 and 5600 too); each against its plain
+    version, untimed."""
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     out = []
     for dt in (torch.bfloat16, torch.float32):
-        for B, L, H, W, E, n in ((2, 50, 7, 5, 64, 4), (3, 97, 9, 13, 128, 2), (1, 130, 64, 3, 64, 2)):
+        rcda_shapes = ((2, 50, 7, 5, 64, 4), (3, 97, 9, 13, 128, 2), (1, 130, 64, 3, 64, 2))
+        for B, L, H, W, E, n in rcda_shapes if "rcda" in kinds else ():
             q_row, q_col = (r(B, L, E) * (E // n) ** -0.5).to(dt), (r(B, L, E) * (E // n) ** -0.5).to(dt)
             k_row, k_col, v = r(B, W, E).to(dt), r(B, H, E).to(dt), r(B, H, W, E).to(dt)
             bias_row, bias_col = torch.zeros(B, W, device=dev), torch.zeros(B, H, device=dev)
@@ -217,10 +251,11 @@ def edge_cases(rcda_kernel, mha_kernel, g):
                        - rcda_kernel.PLAIN[variant](*args).float()).abs().max().item()
                 out.append({"name": f"rcda {variant}", "shape": [B, L, H, W, E, n],
                             "dtype": str(dt)[6:], "max_abs_err": err, "tol": TOL[dt]["rcda"]})
-        mha_shapes = [(2, 40, 23, 64, 4), (2, 70, 130, 128, 2), (1, 5, 1, 32, 1)]
-        if dt == torch.bfloat16:
-            mha_shapes += [(2, 70, 1700, 128, 2), (1, 33, 1601, 64, 2), (1, 20, 2000, 64, 4)]
-        for B, L, S, E, n in mha_shapes:
+        mha_shapes = [(2, 40, 23, 64, 4), (2, 70, 130, 128, 2), (1, 5, 1, 32, 1),
+                      (2, 70, 1700, 128, 2), (1, 33, 1601, 64, 2), (1, 20, 2000, 64, 4)]
+        if dt == torch.float32:  # the model's width over the long point tiers
+            mha_shapes += [(1, 33, 1700, 256, 8), (1, 33, 5600, 256, 8)]
+        for B, L, S, E, n in mha_shapes if "mha" in kinds else ():
             q = (r(B, L, E) * (E // n) ** -0.5).to(dt)
             k, v = r(B, S, E).to(dt), r(B, S, E).to(dt)
             bias = torch.zeros(B, S, device=dev)
@@ -228,21 +263,7 @@ def edge_cases(rcda_kernel, mha_kernel, g):
             err = (mha_kernel.mha_core(q, k, v, bias, n).float()
                    - mha_kernel.mha_core_plain(q, k, v, bias, n).float()).abs().max().item()
             out.append({"name": "mha", "shape": [B, L, S, E, n], "dtype": str(dt)[6:],
-                        "keys": "streamed" if mha_kernel._lib().mha_streamed(E // n, S)
-                        and dt == torch.bfloat16 else "resident",
                         "max_abs_err": err, "tol": TOL[dt]["mha"]})
-    # the float32 kernel's key limit is a clear refusal, not a failed launch
-    q = r(1, 8, 256)
-    kv = r(1, 5600, 256)
-    try:
-        mha_kernel.mha_core(q, kv, kv, torch.zeros(1, 5600, device=dev), 8)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    out.append({"name": "mha float32 key limit", "max_keys": mha_kernel.max_keys(torch.float32, 32),
-                "bf16_max_keys": mha_kernel.max_keys(torch.bfloat16, 32), "refused": refused,
-                "max_abs_err": 0.0 if refused and "S=5600" in refused else float("inf"),
-                "tol": 0.0})
     return out
 
 
@@ -756,7 +777,54 @@ def make_packed_batch(rng, sizes):
     return reqs
 
 
-def main() -> int:
+def kernel_name(mangled):
+    """`name<D>` of a mangled `..._kernel` template, else the mangled name:
+    each name in a mangled symbol follows its length in digits."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):  # a hash may run into the length
+            name = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+            if name.endswith("_kernel"):
+                t = re.match(r"ILi(\d+)E", mangled[m.end() + len(name):])
+                return name + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_report(build_dir, names):
+    """Each kernel's registers, spills and static shared memory, from the
+    ptxas -v lines of the build logs (``_build/<name>.log``)."""
+    out = {}
+    for name in names:
+        path = os.path.join(build_dir, f"{name}.log")
+        if not os.path.exists(path):
+            out[name] = "no build log (library built before this run)"
+            continue
+        entries, cur = [], None
+        with open(path) as f:
+            for line in f:
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    cur = {"function": kernel_name(m.group(1))}
+                    entries.append(cur)
+                    continue
+                if cur is None:
+                    continue
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur["registers"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", line)
+                    cur["static_smem"] = int(sm.group(1)) if sm else 0
+        out[name] = entries
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", choices=("rcda", "mha", "auction"),
+                    help="build, then check only these kernels (cases and edge cases) and stop")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
@@ -779,10 +847,16 @@ def main() -> int:
     build_wall = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi, "kind": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "build_wall_s": build_wall})
+          "cuda": torch.version.cuda, "build_s": build_s, "build_wall_s": build_wall,
+          "rates": card_rates(), "ptxas": ptxas_report(str(_build.BUILD_DIR), _build.SOURCES),
+          # the RCDA kernels' dynamic shared memory a block, bf16, d=32
+          "rcda_dynamic_smem": {f"{v} {H}x{W}": rcda_kernel._lib(v)[1](1, 32, H, W)
+                                for v in ("v3", "rank1") for H, W in ((37, 37), (24, 42))}})
 
     # 2. each kernel against its plain version, at the main path's shapes
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.only:
+        return only_kernels(args.only, g, rcda_kernel, mha_kernel, auction_kernel, matching)
     # B=32: the serving throughput batch; B=8 bf16: the train step's
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
                   for dt in (torch.bfloat16, torch.float32)]
@@ -800,7 +874,7 @@ def main() -> int:
             rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1"))
     mha_cases = [mha_case(mha_kernel, g, dt) for dt in (torch.bfloat16, torch.float32)]
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=8)]
-    # the pseudo-label point tiers: 700 (keys resident) and 5600 (streamed)
+    # the pseudo-label point tiers: 700 and 5600
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=8, L=L) for L in (700, 5600)]
     edges = edge_cases(rcda_kernel, mha_kernel, g)
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
@@ -945,6 +1019,34 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
+    """The kernels phase restricted to ``kinds``: the main-path cases and the
+    edge cases of those kernels; exit status 0 when all are in tolerance."""
+    rec = {"phase": "kernels", "only": kinds}
+    cases = []
+    if "rcda" in kinds:
+        rec["rcda"] = [rcda_case(rcda_kernel, g, torch.bfloat16, L) for L in (1369, 576)]
+        rec["rcda"] += [rcda_case(rcda_kernel, g, torch.bfloat16, L, B=8, H=24, W=42, pad=(34, 20))
+                        for L in (1008, 700)]
+        rec["rcda"] += [rcda_case(rcda_kernel, g, torch.float32, 576)]
+        cases += rec["rcda"]
+    if "mha" in kinds:
+        rec["mha"] = [mha_case(mha_kernel, g, torch.bfloat16),
+                      mha_case(mha_kernel, g, torch.float32)]
+        rec["mha"] += [mha_case(mha_kernel, g, torch.bfloat16, B=8, L=L) for L in (576, 700, 5600)]
+        cases += rec["mha"]
+    if "auction" in kinds:
+        rec["auction"] = auction_cases(auction_kernel, matching, np.random.default_rng(1))
+    rec["edge"] = edge_cases(rcda_kernel, mha_kernel, g, kinds)
+    emit(rec)
+    bad = [c for c in cases + rec["edge"] if not c["max_abs_err"] <= c["tol"]]
+    bad += [c for c in rec.get("mha", []) if not c["dead_row_uniform_err"] <= c["tol"]]
+    bad += [c for c in rec.get("auction", []) if not c["identical"]]
+    if bad:
+        print(f"chip_smoke: FAILED {bad}", file=sys.stderr)
+    return 1 if bad else 0
 
 
 def profile_calls(fn, calls, top=12):

@@ -10,11 +10,11 @@ q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
 (B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
 dtype. A row whose keys are all masked gets the uniform softmax.
 
-Key lengths: the bfloat16 kernel keeps a head's keys in shared memory when
-they fit and streams them in tiles otherwise, so it takes every stage-1
-point tier (S up to ~47k at head dim 32); the float32 kernel (parity only)
-keeps a row of logits per query in shared memory and stops at ~1.6k keys.
-``max_keys`` gives the limit; past it the wrapper raises.
+Key lengths: both kernels make one pass over the keys with an online
+softmax and keep no row of logits, so they take every key length (every
+stage-1 point tier included). The bfloat16 kernel rounds the unnormalised
+probabilities to bf16 and divides by their f32 sum at the end, where the
+plain version rounds the normalised ones: the two agree within 1e-2.
 
 Where a gradient is wanted, the core runs inside ``MHACore``, an autograd
 Function whose backward recomputes through the plain core (the JAX
@@ -24,7 +24,6 @@ package's ``mha_core_fused`` backward); the bias gets no gradient.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -32,7 +31,6 @@ from countdetr_tpu_torch.ops.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
-SMEM_LIMIT = 232448  # shared-memory bytes a block may use on sm_90
 
 # Kernel launches since the counter was last reset (by whoever reads it).
 launches = 0
@@ -59,27 +57,7 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         )
         lib.mha_forward.restype = ctypes.c_int
-        lib.mha_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.mha_smem_bytes.restype = ctypes.c_longlong
-        lib.mha_streamed.argtypes = [ctypes.c_int] * 2
-        lib.mha_streamed.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def max_keys(dtype: torch.dtype, head_dim: int) -> int:
-    """The longest key length the kernel of ``dtype`` takes at ``head_dim``:
-    the largest S whose block fits shared memory (a bisection over the
-    kernel's own ``mha_smem_bytes``; fitting is monotone in S)."""
-    smem = _lib().mha_smem_bytes
-    lo, hi = 1, 1 << 20
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if smem(DTYPE_CODES[dtype], head_dim, mid) <= SMEM_LIMIT:
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
 
 
 def _check(q, k, v, bias, num_heads):
@@ -104,6 +82,8 @@ def _check(q, k, v, bias, num_heads):
             raise ValueError(f"mha: {name} has shape {tuple(t.shape)}, want {shape}")
     if E % num_heads or E // num_heads not in HEAD_DIMS:
         raise ValueError(f"mha: head dim {E}/{num_heads} not in {HEAD_DIMS}")
+    if S < 1:
+        raise ValueError("mha: no keys")
 
 
 def _mha_forward(q, k, v, bias, num_heads):
@@ -116,10 +96,6 @@ def _mha_forward(q, k, v, bias, num_heads):
     _check(q, k, v, bias, num_heads)
     B, L, E = q.shape
     S = k.shape[1]
-    limit = max_keys(q.dtype, E // num_heads)
-    if S > limit:
-        raise ValueError(f"mha: the {q.dtype} kernel takes S <= {limit} keys at head dim "
-                         f"{E // num_heads}, got S={S}")
     lib = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
