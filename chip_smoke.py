@@ -7,8 +7,12 @@ Phases, each printed as one JSON line:
   device    the card (nvidia-smi name and power limit), its SM count and
             maximum SM clock (the exponential rate of the bound), the kernel
             build, one nvcc per CUDA source (rcda, rcda_rank1, mha, auction),
-            all started together, and each kernel's registers, spills and
-            static shared memory from ptxas (the build logs);
+            all started together, each kernel's registers, spills and
+            static shared memory and the compiler's warnings from ptxas (the
+            build logs), the RCDA kernels' dynamic shared memory, and the
+            auction's cluster plan on the matcher's shapes (blocks a
+            cluster, rows resident or streamed, dynamic shared memory a
+            block, clusters the card holds at once);
   kernels   each hand-written kernel against its plain PyTorch version at
             the main paths' shapes: RCDA and MHA in bfloat16 and float32 at
             B=32 (serving) and in bfloat16 at B=8 (the train step); RCDA v3
@@ -19,10 +23,16 @@ Phases, each printed as one JSON line:
             max error and its tolerance;
             the auction with tolerance 0 (assignments, rounds and bids
             identical) on the matcher's shapes: 8x576x700 transposed on
-            random, DETR-shaped and degenerate costs, 576x128 (targets bid),
-            2x576x5600, integer ties, eps-scaling on 128x128, an iteration
-            cap that leaves -1s; kernel / plain / library times (CUDA
-            events; MHA's kernel / library ratio), the least time the card
+            random, DETR-shaped and degenerate costs (the DETR-shaped one
+            also on clusters of 4, 8 and 16, each timed), 16x576x700 with a
+            sparse image in each half (more clusters than the card holds at
+            once), 576x128 (targets bid), 2x576x5600 (rows streamed),
+            2x576x5601 (streamed as scalar columns), integer ties,
+            eps-scaling on 128x128, an iteration cap that leaves -1s; each
+            with its cluster plan, and per timed case the microseconds a
+            round (kernel_ms over the largest image's rounds); kernel /
+            plain / library times (CUDA events; MHA's kernel / library
+            ratio), the least time the card
             could take (bytes, operations or softmax exponentials), and the
             host scipy LAP's time for the auction; then the attention kernels
             at a few other shapes (ragged tiles, head dims 16 and 64, long
@@ -65,8 +75,9 @@ Then the kernels line with each path's launch counts, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
 
-    python3 chip_smoke.py --only rcda mha   # bring-up: build, then only
-                                            # these kernels' cases
+    python3 chip_smoke.py --only auction rank1   # bring-up: build, then
+                                                 # only these kernels' cases
+                                                 # (rcda, rank1, mha, auction)
 """
 
 from __future__ import annotations
@@ -146,6 +157,10 @@ def bound(ops, nbytes, dtype, exps=0):
          "exp": exps / EX2_PER_S}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+# stage 1's RCDA calls: B=8 in the 384x672 bucket, C5 24x42, image 1 padded
+STAGE1_SHAPE = dict(B=8, H=24, W=42, pad=(34, 20))
 
 
 def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3", pad=(30, 25)):
@@ -237,16 +252,17 @@ def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     out = []
+    variants = [v for v in rcda_kernel.PLAIN if "rcda" in kinds or v in kinds]
     for dt in (torch.bfloat16, torch.float32):
         rcda_shapes = ((2, 50, 7, 5, 64, 4), (3, 97, 9, 13, 128, 2), (1, 130, 64, 3, 64, 2))
-        for B, L, H, W, E, n in rcda_shapes if "rcda" in kinds else ():
+        for B, L, H, W, E, n in rcda_shapes if variants else ():
             q_row, q_col = (r(B, L, E) * (E // n) ** -0.5).to(dt), (r(B, L, E) * (E // n) ** -0.5).to(dt)
             k_row, k_col, v = r(B, W, E).to(dt), r(B, H, E).to(dt), r(B, H, W, E).to(dt)
             bias_row, bias_col = torch.zeros(B, W, device=dev), torch.zeros(B, H, device=dev)
             bias_row[-1, W // 2 + 1:] = -1e30
             bias_col[-1, H // 2 + 1:] = -1e30
             args = (q_row, q_col, k_row, k_col, v, bias_row.to(dt), bias_col.to(dt), n)
-            for variant in rcda_kernel.PLAIN:
+            for variant in variants:
                 err = (rcda_kernel.rcda_core(*args, variant).float()
                        - rcda_kernel.PLAIN[variant](*args).float()).abs().max().item()
                 out.append({"name": f"rcda {variant}", "shape": [B, L, H, W, E, n],
@@ -283,17 +299,22 @@ def cost_structures(rng, B, Q, T):
 
 
 def auction_case(auction_kernel, name, benefit, active, eps, cap, scaling=False, cost=None,
-                 valid=None):
+                 valid=None, sweep=()):
     """The kernel against its plain version on one auction problem, tolerance
-    0 on assignments, rounds and bids. With ``cost`` (numpy, the matcher's
-    (B, Q, T)) it is timed, bounded and set beside the host scipy LAP."""
+    0 on assignments, rounds and bids, with the cluster plan it ran on. With
+    ``cost`` (numpy, the matcher's (B, Q, T)) it is timed, bounded and set
+    beside the host scipy LAP; each cluster size in ``sweep`` is run, held
+    to the same answers and timed too."""
     args = (benefit, active, eps, cap, scaling)
     got, rounds, bids = auction_kernel.auction_assign(*args, with_stats=True)
     torch.cuda.synchronize()
     want, w_rounds, w_bids = auction_kernel.auction_plain(*args, with_stats=True)
     B, P, O = benefit.shape
+    C, resident, smem = auction_kernel.cluster_plan(B, P, O)
     rec = {
         "case": name, "shape": {"B": B, "P": P, "O": O}, "scaling": scaling, "max_iters": cap,
+        "cluster": C, "resident": resident, "smem_per_block": smem,
+        "max_active_clusters": auction_kernel.max_active_clusters(P, O, C, resident),
         "identical": bool(torch.equal(got, want) and torch.equal(rounds, w_rounds)
                           and torch.equal(bids, w_bids)),
         "max_abs_err": float((got - want).abs().max().item()),
@@ -305,15 +326,17 @@ def auction_case(auction_kernel, name, benefit, active, eps, cap, scaling=False,
 
         # the least time: the inputs read once and the assignment written
         # once, or this run's scans in f32, one subtract and one compare per
-        # bid and object; the rows that each round re-reads from L2
-        # (l2_mbytes) are traffic the kernel chooses, not the function's
+        # bid and object; the rows that each round re-reads (l2_mbytes, from
+        # shared memory when resident) are traffic the kernel chooses, not
+        # the function's
         nbytes = (benefit.numel() * benefit.element_size() + active.numel() * active.element_size()
                   + eps.numel() * eps.element_size() + got.numel() * got.element_size())
         n_bids = float(bids.sum().item())
         ops = 2 * n_bids * O
         bound_ms, bound_by = bound(ops, nbytes, torch.float32)
+        kernel_ms = cuda_ms(lambda: auction_kernel.auction_assign(*args), 5)
         rec.update({
-            "kernel_ms": cuda_ms(lambda: auction_kernel.auction_assign(*args), 5),
+            "kernel_ms": kernel_ms, "us_per_round": kernel_ms * 1e3 / max(1, int(rounds.max())),
             "plain_ms": cuda_ms(lambda: auction_kernel.auction_plain(*args), 1, warmup=0),
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
             "mbytes": nbytes / 1e6, "l2_mbytes": n_bids * O * 4 / 1e6, "library_ms": None,
@@ -321,6 +344,17 @@ def auction_case(auction_kernel, name, benefit, active, eps, cap, scaling=False,
         t = time.perf_counter()
         scipy_match(cost, valid)
         rec["scipy_host_ms"] = (time.perf_counter() - t) * 1e3  # host time, not the card's
+    rec["sweep"] = []
+    for c in sweep:
+        g2, r2, b2 = auction_kernel.auction_assign(*args, with_stats=True, cluster=c)
+        Cs, res_s, smem_s = auction_kernel.cluster_plan(B, P, O, c)
+        ms = cuda_ms(lambda: auction_kernel.auction_assign(*args, cluster=c), 5)
+        rec["sweep"].append({
+            "cluster": Cs, "resident": res_s, "smem_per_block": smem_s,
+            "max_active_clusters": auction_kernel.max_active_clusters(P, O, Cs, res_s),
+            "identical": bool(torch.equal(g2, want) and torch.equal(r2, w_rounds)
+                              and torch.equal(b2, w_bids)),
+            "kernel_ms": ms, "us_per_round": ms * 1e3 / max(1, int(r2.max()))})
     return rec
 
 
@@ -328,17 +362,25 @@ def auction_cases(auction_kernel, matching, rng):
     dev = torch.device("cuda")
     cases = []
 
-    def from_cost(name, cost, valid, timed, cap=None):
+    def from_cost(name, cost, valid, timed, cap=None, sweep=()):
         c, v = torch.from_numpy(cost).to(dev), torch.from_numpy(valid).to(dev)
         benefit, active, eps, iters_cap, squared = matching.auction_inputs(c, v)
         cases.append(auction_case(auction_kernel, name, benefit, active, eps, cap or iters_cap,
-                                  squared, cost=cost if timed else None, valid=valid))
+                                  squared, cost=cost if timed else None, valid=valid,
+                                  sweep=sweep))
 
     B, Q = 8, 576
     valid700 = np.ones((B, 700), bool)
     valid700[0, 40:] = False  # one sparse image
     for name, cost in cost_structures(rng, B, Q, 700).items():
-        from_cost(f"576x700 {name}", cost, valid700, timed=True)
+        # the main shape also on clusters of 4 (rows streamed), 8 and 16
+        from_cost(f"576x700 {name}", cost, valid700, timed=True,
+                  sweep=(4, 8, 16) if name == "detr" else ())
+    # more clusters than the card holds at once: one sparse image in each half
+    valid16 = np.ones((16, 700), bool)
+    valid16[[0, 8], 40:] = False
+    from_cost("576x700 detr B=16", cost_structures(rng, 16, Q, 700)["detr"], valid16,
+              timed=False)
     valid128 = np.ones((B, 128), bool)
     valid128[0, 40:] = False
     from_cost("576x128 detr (targets bid)", cost_structures(rng, B, Q, 128)["detr"], valid128,
@@ -347,6 +389,11 @@ def auction_cases(auction_kernel, matching, rng):
     valid5600[:, :3000] = True
     from_cost("576x5600 detr, 3000 valid", cost_structures(rng, 2, Q, 5600)["detr"], valid5600,
               timed=True)
+    # rows streamed as scalar columns: O not a multiple of 4
+    valid5601 = np.zeros((2, 5601), bool)
+    valid5601[:, :3001] = True
+    from_cost("576x5601 detr, 3001 valid (scalar rows)", cost_structures(rng, 2, Q, 5601)["detr"],
+              valid5601, timed=False)
     from_cost("576x700 detr, cap 5", cost_structures(rng, B, Q, 700)["detr"], valid700,
               timed=False, cap=5)
     for Bi, P, O in ((3, 23, 43), (2, 5, 5), (2, 2, 30), (1, 1, 9)):  # exact ties
@@ -777,6 +824,12 @@ def make_packed_batch(rng, sizes):
     return reqs
 
 
+def auction_plan(auction_kernel, P, O):
+    C, resident, smem = auction_kernel.cluster_plan(1, P, O)
+    return {"cluster": C, "resident": resident, "dynamic_smem": smem,
+            "max_active_clusters": auction_kernel.max_active_clusters(P, O, C, resident)}
+
+
 def kernel_name(mangled):
     """`name<D>` of a mangled `..._kernel` template, else the mangled name:
     each name in a mangled symbol follows its length in digits."""
@@ -790,17 +843,20 @@ def kernel_name(mangled):
 
 
 def ptxas_report(build_dir, names):
-    """Each kernel's registers, spills and static shared memory, from the
-    ptxas -v lines of the build logs (``_build/<name>.log``)."""
+    """Each kernel's registers, spills and static shared memory, and the
+    compiler's warnings, from the build logs (``_build/<name>.log``,
+    nvcc with ptxas -v)."""
     out = {}
     for name in names:
         path = os.path.join(build_dir, f"{name}.log")
         if not os.path.exists(path):
             out[name] = "no build log (library built before this run)"
             continue
-        entries, cur = [], None
+        entries, warnings, cur = [], [], None
         with open(path) as f:
             for line in f:
+                if re.search(r"warning|C75\d\d", line):  # e.g. C7514: wgmma serialized
+                    warnings.append(line.strip()[:200])
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
                     cur = {"function": kernel_name(m.group(1))}
@@ -816,13 +872,13 @@ def ptxas_report(build_dir, names):
                     cur["registers"] = int(m.group(1))
                     sm = re.search(r"(\d+) bytes smem", line)
                     cur["static_smem"] = int(sm.group(1)) if sm else 0
-        out[name] = entries
+        out[name] = {"kernels": entries, "warnings": warnings}
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+", choices=("rcda", "mha", "auction"),
+    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction"),
                     help="build, then check only these kernels (cases and edge cases) and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -851,7 +907,11 @@ def main(argv=None) -> int:
           "rates": card_rates(), "ptxas": ptxas_report(str(_build.BUILD_DIR), _build.SOURCES),
           # the RCDA kernels' dynamic shared memory a block, bf16, d=32
           "rcda_dynamic_smem": {f"{v} {H}x{W}": rcda_kernel._lib(v)[1](1, 32, H, W)
-                                for v in ("v3", "rank1") for H, W in ((37, 37), (24, 42))}})
+                                for v in ("v3", "rank1") for H, W in ((37, 37), (24, 42))},
+          # the auction's plan, shared memory a block and clusters resident at
+          # once on the matcher's shapes (P x O)
+          "auction_plan": {f"{P}x{O}": auction_plan(auction_kernel, P, O)
+                           for P, O in ((576, 700), (128, 576), (576, 5600))}})
 
     # 2. each kernel against its plain version, at the main path's shapes
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -864,12 +924,11 @@ def main(argv=None) -> int:
     # stage 1: B=8 in the 384x672 bucket, C5 24x42, the encoder
     # (L = H*W = 1008, image 1 padded) and the decoder over the 700 tier;
     # both variants, both dtypes; the rank-1 kernel at B=32 37x37 too
-    stage1 = dict(B=8, H=24, W=42, pad=(34, 20))
     rank1_cases = []
     for dt in (torch.bfloat16, torch.float32):
         for L in (1008, 700):
-            rcda_cases.append(rcda_case(rcda_kernel, g, dt, L, **stage1))
-            rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1", **stage1))
+            rcda_cases.append(rcda_case(rcda_kernel, g, dt, L, **STAGE1_SHAPE))
+            rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1", **STAGE1_SHAPE))
         for L in (1369, 576):
             rank1_cases.append(rcda_case(rcda_kernel, g, dt, L, variant="rank1"))
     mha_cases = [mha_case(mha_kernel, g, dt) for dt in (torch.bfloat16, torch.float32)]
@@ -881,6 +940,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     failures = [("edge", c) for c in edges if not c["max_abs_err"] <= c["tol"]]
     failures += [("auction", c["case"]) for c in auctions if not c["identical"]]
+    failures += [("auction", c["case"], "cluster", x["cluster"]) for c in auctions
+                 for x in c["sweep"] if not x["identical"]]
     capped = next(c for c in auctions if c["case"].endswith("cap 5"))
     if not capped["unassigned"]:
         failures.append(("auction", "the iteration cap left no -1", capped["case"]))
@@ -1028,10 +1089,16 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
     cases = []
     if "rcda" in kinds:
         rec["rcda"] = [rcda_case(rcda_kernel, g, torch.bfloat16, L) for L in (1369, 576)]
-        rec["rcda"] += [rcda_case(rcda_kernel, g, torch.bfloat16, L, B=8, H=24, W=42, pad=(34, 20))
+        rec["rcda"] += [rcda_case(rcda_kernel, g, torch.bfloat16, L, **STAGE1_SHAPE)
                         for L in (1008, 700)]
         rec["rcda"] += [rcda_case(rcda_kernel, g, torch.float32, 576)]
         cases += rec["rcda"]
+    if "rank1" in kinds:  # the kernels phase's rank-1 cases
+        rec["rcda_rank1"] = [
+            rcda_case(rcda_kernel, g, dt, L, variant="rank1", **kw)
+            for dt in (torch.bfloat16, torch.float32)
+            for L, kw in ((1008, STAGE1_SHAPE), (700, STAGE1_SHAPE), (1369, {}), (576, {}))]
+        cases += rec["rcda_rank1"]
     if "mha" in kinds:
         rec["mha"] = [mha_case(mha_kernel, g, torch.bfloat16),
                       mha_case(mha_kernel, g, torch.float32)]
@@ -1043,7 +1110,8 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
     emit(rec)
     bad = [c for c in cases + rec["edge"] if not c["max_abs_err"] <= c["tol"]]
     bad += [c for c in rec.get("mha", []) if not c["dead_row_uniform_err"] <= c["tol"]]
-    bad += [c for c in rec.get("auction", []) if not c["identical"]]
+    bad += [c for c in rec.get("auction", [])
+            if not (c["identical"] and all(x["identical"] for x in c["sweep"]))]
     if bad:
         print(f"chip_smoke: FAILED {bad}", file=sys.stderr)
     return 1 if bad else 0

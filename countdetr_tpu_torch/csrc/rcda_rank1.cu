@@ -17,23 +17,27 @@
 //
 // What bounds it on this card: at the stage-1 shapes (B=8, 8 heads of d=32,
 // H=24, W=42; L = H*W = 1008 in the encoder, the point tier in the decoder)
-// the combine is 2*d*H*W operations a query and head against ~4*E bytes of
-// q and out a query, so the encoder call sits near the line between the
-// two (~4.5 GFLOP against ~17 MB of bf16), the decoder's is bound by its
-// operations as L grows.
+// the combine is 2*d*H*W operations a query and head on the tensor cores,
+// plus H*W products and conversions forming P on the CUDA cores (at d=32
+// about as many instructions as the products), against ~4*E bytes of q
+// and out a query: the encoder call sits near the line between bytes and
+// operations. An earlier design (128-thread blocks of 64 queries, scores one
+// thread per row, mma.sync with value rows through a cp.async ring re-read
+// by every block) ran 14x above its bound.
 //
-// What the design does about it: one block of 128 threads per (64-query
-// tile, head, batch); the score phase is rcda.cu's (rcda_scores.cuh), with
-// both maps kept in f32. Then the combine:
-//  * bf16: tensor cores. Each warp holds a_row for its 16 queries in f32
-//    registers, at the positions of an mma.sync m16n8k16 A fragment (W
-//    padded to 16 with zero columns). For each H row it scales them by
-//    a_col[l, h], rounds the product to bf16 straight into the A fragment
-//    (as mha.cu feeds its probabilities to PV), and accumulates P_h times
-//    v[h] (W x d) into one f32 accumulator: the H*W contraction in 16-wide
-//    k-steps, with no (B, n, L, H, d) intermediate. Value rows stream
-//    through rcda.cu's ring of kStages cp.async slots, reused from the
-//    score phase's scratch, and reach the B operand by ldmatrix.trans.
+// What the design does about it:
+//  * bf16: the block, TMA producer, q tiles, wgmma scores and softmaxes of
+//    rcda_wgmma.cuh (shared with rcda.cu): 3 consumer warpgroups and a
+//    producer warp per 6 query tiles of one (batch, head), the value slice
+//    v[b, :, :, head] resident in shared memory when it fits (37x37 at
+//    d=32: 114 KB), both softmaxes in f32 registers and neither rounded.
+//    The combine (Rank1Combine below): for each row h, P_h = a_col[:, h] *
+//    a_row in f32, rounded once to bf16 straight into register A operands
+//    (W padded to 16 by zero columns), and one f32 accumulator takes P_h
+//    v[h] by wgmma m64nDk16 (v[h] read as stored, the transposed-B form)
+//    over all h: no per-h intermediate, no a_col rescale. Two sets of A
+//    registers alternate, so P_{h+1} is formed while the product on P_h is
+//    in flight.
 //  * float32 (parity only): CUDA cores, each thread a 4 query x 4 channel
 //    register tile, P formed in f32 per (h, w) and multiplied into v.
 // The TPU kernel's expand matrix and pltpu.repeat (Mosaic's way to build P
@@ -44,150 +48,84 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "rcda_scores.cuh"
+#include "rcda_wgmma.cuh"
 
 namespace {
 
-constexpr int kMaxAxis = 64;  // H, W limit: a_row's fragments stay in registers
-
 // ---------------------------------------------------------------- bf16 ---
 
-constexpr int kMmaTL = 16 * kWarps;  // queries per block: 16 per warp
-constexpr int kStages = 8;           // value rows in flight (cp.async ring)
+template <int D>
+struct Rank1Combine {
+  static constexpr int kMaxKs = rcda_wgmma::kMaxAxis / 16;  // k-steps over w
+  float ar[32];  // a_row in f32 at the accumulator layout (= the A layout)
 
-// Words: the score layout; the ring of value rows reuses its a_row map and
-// scratch, dead once a_row is in registers; a_col stays live below it.
-struct MmaLayout {
-  ScoreLayout sc;
-  int w_pad, row_words, slot_words, ring, total;
-  __host__ __device__ MmaLayout(int D, int H, int W) : sc(kMmaTL, D, H, W) {
-    w_pad = (W + 15) & ~15;
-    // value rows as stored, w-major, pitch D + 8 bf16: 16-byte aligned for
-    // cp.async, and the 8 rows an ldmatrix tile reads hit distinct banks
-    row_words = (D + 8) / 2;
-    slot_words = w_pad * row_words;
-    ring = sc.arow;
-    total = sc.end > ring + kStages * slot_words ? sc.end : ring + kStages * slot_words;
+  __device__ __forceinline__ void take_row(const float (&s)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ar[i] = s[i];
+  }
+
+  __device__ __forceinline__ void operator()(const float* s_acol, const rcda_wgmma::Ring& ring,
+                                             int lr, int H, int W, float (&acc)[D / 2]) {
+    using namespace hopper;
+    constexpr int kAP = rcda_wgmma::kAP, kG = rcda_wgmma::kN / D, kRow = 2 * D;
+    const int nks = (W + 15) / 16;
+    uint32_t pa[kMaxKs][4], pb[kMaxKs][4];
+    int cur = -1;  // the value group in use
+    uint32_t va = 0;
+    // P_h into the A registers pf, then its products, issued and left in
+    // flight; the wait retires the previous h's, freeing the other set
+    auto step = [&](uint32_t (&pf)[kMaxKs][4], int h) {
+      const int gi = h / kG;
+      if (gi != cur) {
+        if (cur >= 0 && !ring.resident) {
+          wgmma_wait<0>();
+          ring.release(cur);
+        }
+        va = ring.wait(gi);
+        cur = gi;
+      }
+      const float c0 = s_acol[h * kAP + lr], c1 = s_acol[h * kAP + lr + 8];
+#pragma unroll
+      for (int ks = 0; ks < kMaxKs; ++ks)
+        if (ks < nks)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ch = (i & 1) ? c1 : c0;  // a[1], a[3] hold row lr + 8
+            pf[ks][i] = pack_bf16(ch * ar[8 * ks + 2 * i], ch * ar[8 * ks + 2 * i + 1]);
+          }
+      const uint32_t vh = va + (h % kG) * ring.slice;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kMaxKs; ++ks)
+        if (ks < nks) wgmma_rs<D>(acc, pf[ks], desc<D>(vh + 16 * kRow * ks), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    };
+    for (int h = 0; h < H; h += 2) {
+      step(pa, h);
+      if (h + 1 < H) step(pb, h + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (cur >= 0) ring.release(cur);
   }
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-rcda_rank1_mma_kernel(const __nv_bfloat16* __restrict__ q_row,
-                      const __nv_bfloat16* __restrict__ q_col,
-                      const __nv_bfloat16* __restrict__ k_row,
-                      const __nv_bfloat16* __restrict__ k_col,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ bias_row,
-                      const __nv_bfloat16* __restrict__ bias_col,
-                      __nv_bfloat16* __restrict__ out, int L, int H, int W, int E) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int TL = kMmaTL;
-  constexpr int kMaxKs = kMaxAxis / 16;  // k-steps over w
-  const MmaLayout lay(D, H, W);
-  extern __shared__ __align__(16) uint32_t smem_w[];
-  float* sf = reinterpret_cast<float*>(smem_w);
-  const float* s_arow = sf + lay.sc.arow;
-  const float* s_acol = sf + lay.sc.acol;
-
-  const int tid = threadIdx.x;
-  const int l0 = blockIdx.x * TL;
-  const int hoff = blockIdx.y * D;
-  const size_t b = blockIdx.z;
-  scores_and_softmax<__nv_bfloat16, D, TL, false>(sf, lay.sc, q_row, q_col, k_row, k_col,
-                                                  bias_row, bias_col, b, l0, hoff, L, H, W, E);
-  __syncthreads();
-
-  // a_row in f32 at this thread's A-fragment positions: rows lr, lr + 8,
-  // columns 2t, 2t+1, 2t+8, 2t+9 of each 16-wide k-step; zero past W
-  const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int lr = (tid / 32) * 16 + g;
-  const int nks = lay.w_pad / 16;
-  auto arow_at = [&](int w, int l) { return w < W ? s_arow[w * TL + l] : 0.f; };
-  float ar[kMaxKs][8];
-#pragma unroll
-  for (int ks = 0; ks < kMaxKs; ++ks) {
-    if (ks >= nks) break;
-    const int w0 = ks * 16 + 2 * t4;
-    ar[ks][0] = arow_at(w0, lr);
-    ar[ks][1] = arow_at(w0 + 1, lr);
-    ar[ks][2] = arow_at(w0, lr + 8);
-    ar[ks][3] = arow_at(w0 + 1, lr + 8);
-    ar[ks][4] = arow_at(w0 + 8, lr);
-    ar[ks][5] = arow_at(w0 + 9, lr);
-    ar[ks][6] = arow_at(w0 + 8, lr + 8);
-    ar[ks][7] = arow_at(w0 + 9, lr + 8);
-  }
-  __syncthreads();  // a_row's f32 map and the scratch are free for the ring
-
-  // value rows v[b, h, :, head] through a ring of kStages slots: row h is
-  // multiplied while rows h+1 .. h+kStages-1 are in flight. Rows past W
-  // stay zero in every slot.
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  uint32_t* ring = smem_w + lay.ring;
-  for (int i = tid; i < kStages * (lay.w_pad - W) * lay.row_words; i += kThreads) {
-    const int per_slot = (lay.w_pad - W) * lay.row_words;
-    ring[(i / per_slot) * lay.slot_words + W * lay.row_words + i % per_slot] = 0u;
-  }
-  const __nv_bfloat16* vb = v + b * H * W * E + hoff;
-  const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
-  const int row_bytes = lay.row_words * 4, slot_bytes = lay.slot_words * 4;
-  auto issue_row = [&](int h) {
-    if (h < H) {
-      const __nv_bfloat16* src = vb + static_cast<size_t>(h) * W * E;
-      const uint32_t dst = ring_addr + (h % kStages) * slot_bytes;
-      for (int i = tid; i < W * CH; i += kThreads)
-        cp_async16(dst + (i / CH) * row_bytes + (i % CH) * 16,
-                   src + static_cast<size_t>(i / CH) * E + (i % CH) * 8);
-    }
-    cp_async_commit();  // one group per row, empty past H, so counts stay aligned
-  };
-  for (int h = 0; h < kStages - 1; ++h) issue_row(h);
-
-  // ldmatrix row address of this lane: tile m = lane / 8 covers w rows
-  // (m % 2) * 8 .. + 7 and channels (m / 2) * 8 .. + 7 of a 16 x 16 block
-  const int lm_row = (lane / 8 % 2) * 8 + lane % 8, lm_col = lane / 16 * 16;
-
-  float acc[D / 8][4] = {};
-  for (int h = 0; h < H; ++h) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of row h landed
-    __syncthreads();  // everyone's did, and row h - 1's slot is free again
-    issue_row(h + kStages - 1);
-    const uint32_t slot = ring_addr + (h % kStages) * slot_bytes;
-    const float c0 = s_acol[h * TL + lr], c1 = s_acol[h * TL + lr + 8];
-#pragma unroll
-    for (int ks = 0; ks < kMaxKs; ++ks) {
-      if (ks >= nks) break;
-      // P_h = a_col[l, h] * a_row[l, w] in f32, rounded to bf16 in place
-      const uint32_t pa[4] = {
-          pack_bf16(c0 * ar[ks][0], c0 * ar[ks][1]),
-          pack_bf16(c1 * ar[ks][2], c1 * ar[ks][3]),
-          pack_bf16(c0 * ar[ks][4], c0 * ar[ks][5]),
-          pack_bf16(c1 * ar[ks][6], c1 * ar[ks][7]),
-      };
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {  // two n-tiles of 8 channels
-        uint32_t bf[4];
-        ldmatrix_x4_trans(slot + (ks * 16 + lm_row) * row_bytes + np * 32 + lm_col, bf);
-        mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-
-  const int r0 = l0 + lr, r1 = r0 + 8;
-  __nv_bfloat16* ob = out + b * L * E + hoff;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * t4;
-    if (r0 < L)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r0) * E + c) =
-          pack_bf16(acc[nt][0], acc[nt][1]);
-    if (r1 < L)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r1) * E + c) =
-          pack_bf16(acc[nt][2], acc[nt][3]);
-  }
+__global__ void __launch_bounds__(rcda_wgmma::kThreads, 1)
+rcda_rank1_wgmma_kernel(const __grid_constant__ CUtensorMap map_qr,
+                        const __grid_constant__ CUtensorMap map_qc,
+                        const __grid_constant__ CUtensorMap map_kr,
+                        const __grid_constant__ CUtensorMap map_kc,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __nv_bfloat16* __restrict__ bias_row,
+                        const __nv_bfloat16* __restrict__ bias_col,
+                        __nv_bfloat16* __restrict__ out, int L, int H, int W, int E, int stages) {
+  rcda_wgmma::run<D, Rank1Combine<D>>(&map_qr, &map_qc, &map_kr, &map_kc, &map_v, bias_row,
+                                      bias_col, out, L, H, W, E, stages);
 }
 
 // ------------------------------------------------------------- float32 ---
@@ -254,9 +192,8 @@ rcda_rank1_f32_kernel(const float* __restrict__ q_row, const float* __restrict__
 
 template <int D>
 size_t smem_bytes_d(int dtype, int H, int W) {
-  const int words = dtype == 0 ? ScoreLayout(Tiling<D>::TL, D, H, W).end
-                               : MmaLayout(D, H, W).total;
-  return static_cast<size_t>(words) * 4;
+  if (dtype == 0) return static_cast<size_t>(ScoreLayout(Tiling<D>::TL, D, H, W).end) * 4;
+  return rcda_wgmma::smem_bytes(D, H, W);
 }
 
 size_t smem_bytes(int dtype, int D, int H, int W) {
@@ -273,7 +210,8 @@ int launch(int dtype, const void* q_row, const void* q_col, const void* k_row,
            const void* k_col, const void* v, const void* bias_row,
            const void* bias_col, void* out, int B, int L, int H, int W, int E,
            int num_heads, cudaStream_t stream) {
-  if (H > kMaxAxis || W > kMaxAxis) return static_cast<int>(cudaErrorInvalidValue);
+  if (H > rcda_wgmma::kMaxAxis || W > rcda_wgmma::kMaxAxis)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes_d<D>(dtype, H, W);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
@@ -288,18 +226,10 @@ int launch(int dtype, const void* q_row, const void* q_col, const void* k_row,
         static_cast<F>(q_row), static_cast<F>(q_col), static_cast<F>(k_row),
         static_cast<F>(k_col), static_cast<F>(v), static_cast<F>(bias_row),
         static_cast<F>(bias_col), static_cast<float*>(out), L, H, W, E);
-  } else {
-    auto kern = rcda_rank1_mma_kernel<D>;
-    err = cudaFuncSetAttribute(kern, attr, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L + kMmaTL - 1) / kMmaTL, num_heads, B);
-    using F = const __nv_bfloat16*;
-    kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<F>(q_row), static_cast<F>(q_col), static_cast<F>(k_row),
-        static_cast<F>(k_col), static_cast<F>(v), static_cast<F>(bias_row),
-        static_cast<F>(bias_col), static_cast<__nv_bfloat16*>(out), L, H, W, E);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return rcda_wgmma::launch<D>(rcda_rank1_wgmma_kernel<D>, q_row, q_col, k_row, k_col, v,
+                               bias_row, bias_col, out, B, L, H, W, E, num_heads, stream);
 }
 
 }  // namespace

@@ -4,7 +4,9 @@
 launches the kernel in ``csrc/auction.cu`` (the counterpart of the JAX
 package's Pallas ``auction_assign``); on a CPU tensor it runs
 ``auction_plain``. There is no fallback between the two: a CUDA call that
-the kernel cannot take raises.
+the kernel cannot take raises. The kernel runs each image on a cluster of
+C thread blocks; ``cluster_plan`` picks C and whether the image's benefit
+rows stay resident in the cluster's shared memory or stream from L2.
 
 A batched Jacobi (all bidders at once) forward auction, one problem per
 image (countdetr_tpu/ops/matching.py::_auction):
@@ -32,6 +34,12 @@ NEG_INF = -1e30
 SCALE_START = 512.0
 SCALE_THETA = 8.0
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+# Thread blocks a cluster (one image): of 4, 8 and 16, 16 ran the 8x576x700
+# matcher batches fastest on an H100 (chip_smoke.py's cluster sweep; PERF.md).
+# 16 is the largest cluster the card schedules, beyond the portable 8: the
+# kernel sets the non-portable cluster attribute for it.
+CLUSTER = 16
+MAX_CLUSTER = 16
 
 # Kernel launches since the counter was last reset (by whoever reads it).
 launches = 0
@@ -111,15 +119,54 @@ def auction_plain(benefit, active, eps, max_iters, scaling=False, with_stats=Fal
     return (assigned, rounds, bids) if with_stats else assigned
 
 
+def smem_bytes(P, O, C, resident):
+    """Shared memory of one block of a cluster of C (csrc/auction.cu's
+    Layout): the block's rows when resident (ceil(P/C) of them, pitch O
+    rounded up to 4), a replica of the O prices, its persons' best bid for
+    each of the O objects (8 bytes), an inbox of the C blocks' best bids
+    for each of its ceil(O/C) objects and their owners, its persons'
+    assignment and active flag, and the cluster's flag rows."""
+    O4 = (O + 3) // 4 * 4
+    rp, op = -(-P // C), -(-O // C)
+    prices = 4 * rp * O4 if resident else 0
+    return (prices + 4 * O4 + 8 * O + 8 * op * C + 4 * op + 4 * rp + 4 * 2 * MAX_CLUSTER
+            + rp)
+
+
+def cluster_plan(B, P, O, cluster=None):
+    """(C, resident, shared bytes a block) for a (B, P, O) auction: C =
+    ``cluster`` (default CLUSTER) blocks an image, no more than P; without
+    ``cluster`` the plan grows C up to MAX_CLUSTER where that makes the rows
+    fit. Resident rows stay in the cluster's shared memory; otherwise they
+    stream from L2 at C. The batch size does not change the plan."""
+    C = max(1, min(cluster or CLUSTER, P))
+    for c in [C] if cluster else range(C, max(C, min(MAX_CLUSTER, P)) + 1):
+        if smem_bytes(P, O, c, True) <= MAX_SMEM:
+            return c, True, smem_bytes(P, O, c, True)
+    return C, False, smem_bytes(P, O, C, False)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("auction")
     if lib.auction_forward.argtypes is None:
         lib.auction_forward.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.auction_forward.restype = ctypes.c_int
-        lib.auction_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.auction_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.auction_smem_bytes.restype = ctypes.c_longlong
+        lib.auction_max_active_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.auction_max_active_clusters.restype = ctypes.c_int
     return lib
+
+
+def max_active_clusters(P, O, C, resident):
+    """Clusters of this plan the card holds at once (the CUDA occupancy
+    query; 0 if none fits)."""
+    n = ctypes.c_int(0)
+    err = _lib().auction_max_active_clusters(P, O, C, int(resident), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"auction: cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+    return n.value
 
 
 def _check(benefit, active, eps):
@@ -137,9 +184,11 @@ def _check(benefit, active, eps):
         raise ValueError(f"auction: eps must be ({B},) float32, got {eps.dtype} {tuple(eps.shape)}")
 
 
-def auction_assign(benefit, active, eps, max_iters, scaling=False, with_stats=False):
+def auction_assign(benefit, active, eps, max_iters, scaling=False, with_stats=False,
+                   cluster=None):
     """The auction: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and results as ``auction_plain``."""
+    CPU tensors. Same arguments and results as ``auction_plain``;
+    ``cluster`` overrides the plan's blocks per image (measurements)."""
     global launches
     if benefit.device.type == "cpu":
         return auction_plain(benefit, active, eps, max_iters, scaling, with_stats)
@@ -152,16 +201,19 @@ def auction_assign(benefit, active, eps, max_iters, scaling=False, with_stats=Fa
     bids = torch.zeros((B,), dtype=torch.int64, device=benefit.device)
     if B and P and O:
         lib = _lib()
-        smem = lib.auction_smem_bytes(P, O)
-        if smem > MAX_SMEM:
-            raise ValueError(f"auction: P={P}, O={O} need {smem} B of shared memory per block")
+        C, resident, smem = cluster_plan(B, P, O, cluster)
+        if not 1 <= C <= MAX_CLUSTER or smem > MAX_SMEM:
+            raise ValueError(f"auction: P={P}, O={O} on clusters of {C} need {smem} B of "
+                             f"shared memory per block")
+        if lib.auction_smem_bytes(P, O, C, int(resident)) != smem:
+            raise RuntimeError("auction: smem_bytes disagrees with csrc/auction.cu's Layout")
         benefit = benefit.contiguous()
         active_u8 = active.to(torch.uint8).contiguous()
         eps = eps.contiguous()
         err = lib.auction_forward(
             benefit.data_ptr(), active_u8.data_ptr(), eps.data_ptr(),
             assigned.data_ptr(), rounds.data_ptr(), bids.data_ptr(),
-            B, P, O, int(max_iters), int(bool(scaling)),
+            B, P, O, int(max_iters), int(bool(scaling)), C, int(resident),
             torch.cuda.current_stream(benefit.device).cuda_stream,
         )
         if err != 0:
