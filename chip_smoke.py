@@ -70,7 +70,24 @@ Phases, each printed as one JSON line:
             "rank1", "rank1", "v3" after a warm-up run of each: annotation
             counts equal the points, the two JSONs' w, h within 1 px, 12
             RCDA (resp. 12 rank-1) and 6 MHA launches per forward; images/s,
-            points/s and a profiled run of each variant.
+            points/s and a profiled run of each variant;
+  engine    the training and evaluation engine at full width in bfloat16 on
+            a synthetic FSCD-147 tree (48/16/16 JPEGs of 384x576, 4-400
+            objects): FSC147Pseudo read raw uint8 into a shuffled Batcher
+            with 2 workers and box tiers (128, 700, 5600); train_one_epoch
+            for epoch 0, an AsyncSaver checkpoint, epoch 1; a second
+            Trainer restored from the checkpoint (weights, AdamW moments,
+            scheduler position and bad_steps bit-equal to the first's at
+            the save) runs epoch 1 again (mean loss within rtol 1e-2);
+            evaluate on val, infer_detections on test with its predictions
+            JSON, counting_summary and COCO AP; stage 1 under "rank1": one
+            epoch of 6 steps on FSCD147Exemplars and stage1_test. Per loop:
+            launch counts (12/6/1 a stage-2 step, 12/6 a forward), wall
+            seconds, img/s, peak memory, host seconds by phase and, for
+            the profiled loops, the device idle share; the auction's rounds
+            per image of epoch 0 and how many hit the cap. JSONs land in
+            --out (the checkpoint's meta and latest.json, not its ~0.5 GB
+            payload).
 Then the kernels line with each path's launch counts, the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
@@ -78,6 +95,8 @@ non-zero; without a CUDA device nothing is printed on stdout.
     python3 chip_smoke.py --only auction rank1   # bring-up: build, then
                                                  # only these kernels' cases
                                                  # (rcda, rank1, mha, auction)
+    python3 chip_smoke.py --only engine          # build, then only the
+                                                 # engine phase
 """
 
 from __future__ import annotations
@@ -813,6 +832,349 @@ def pseudo_label_phase(rng, smi, failures):
     return launches_by_variant
 
 
+# the engine phase's tree: 384x576 images resize into the (384, 672) bucket;
+# 4-400 objects put stage-2 batches in both the 128 and the 700 box tier
+ENGINE_TREE = dict(n_train=48, n_val=16, n_test=16, size=(384, 576), objects=(4, 400), seed=0)
+BOX_TIERS = (128, 700, 5600)  # cli/main.py:593-597 at max_boxes 700
+
+
+class HostClock:
+    """Host seconds by phase of the engine's loops, from wrappers installed
+    around the loops' calls (the engine itself has no timing code):
+      first     the loop blocked on the prefetch queue for its first batch
+                (a new Batcher's worker pool starts, then decodes);
+      wait      the loop blocked on the prefetch queue for the later batches;
+      produce   the prefetch thread's Batcher iterator: loading and decoding
+                (in the workers), assembling and packing (overlaps the rest);
+      h2d       the batch's copies to the card (a pageable copy first waits
+                for the stream's queued work);
+      step      Trainer.step / eval_step / the model's forward: the copies and
+                the dispatch of every kernel;
+      log       the metric logger (its reads of the metrics are syncs);
+      other     the loop's wall time less first, wait, step and log (train and
+                eval loops: the NaN guard's bad_steps read; inference loops:
+                the device-to-host copy of the outputs, which waits for the
+                forward, and the host post-processing and JSON)."""
+
+    def __init__(self, engine, train_step):
+        self.engine, self.ts = engine, train_step
+        self.s = {}
+
+    def _add(self, key, t0):
+        self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+
+    def __enter__(self):
+        eng, ts, clock = self.engine, self.ts, self
+        self.saved = (eng.prefetch, eng._inputs, ts.prepare_stage1_batch,
+                      ts.prepare_stage2_batch, ts.Trainer.step, ts.Trainer.eval_step,
+                      eng.MetricLogger)
+        real_prefetch, real_inputs, p1, p2, step, eval_step, logger_cls = self.saved
+
+        def produced(it):
+            it = iter(it)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                clock._add("produce", t0)
+                yield item
+
+        def prefetch(it, depth=2):
+            inner = real_prefetch(produced(it), depth)
+            key = "first"
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(inner)
+                except StopIteration:
+                    return
+                clock._add(key, t0)
+                key = "wait"
+                yield item
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    clock._add(key, t0)
+            return wrapper
+
+        class Logger(logger_cls):
+            def step(self, metrics, force=False):
+                t0 = time.perf_counter()
+                super().step(metrics, force)
+                clock._add("log", t0)
+
+        eng.prefetch, eng._inputs, eng.MetricLogger = prefetch, timed("h2d", real_inputs), Logger
+        ts.prepare_stage1_batch, ts.prepare_stage2_batch = timed("h2d", p1), timed("h2d", p2)
+        ts.Trainer.step, ts.Trainer.eval_step = timed("step", step), timed("step", eval_step)
+        return self
+
+    def __exit__(self, *exc):
+        eng, ts = self.engine, self.ts
+        (eng.prefetch, eng._inputs, ts.prepare_stage1_batch, ts.prepare_stage2_batch,
+         ts.Trainer.step, ts.Trainer.eval_step, eng.MetricLogger) = self.saved
+
+    def run(self, fn, forward_of=None):
+        """fn() with the phases counted afresh; ``forward_of``: a model whose
+        forward calls count as ``step`` (the inference loops). Returns
+        (fn's result, wall seconds, seconds by phase)."""
+        self.s = {}
+        hooks = []
+        if forward_of is not None:
+            t = {}
+            hooks = [forward_of.register_forward_pre_hook(
+                         lambda m, a: t.__setitem__(0, time.perf_counter())),
+                     forward_of.register_forward_hook(lambda m, a, o: self._add("step", t[0]))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        wall = time.perf_counter() - t0
+        phases = {k: self.s.get(k, 0.0)
+                  for k in ("first", "wait", "produce", "h2d", "step", "log")}
+        phases["dispatch"] = phases["step"] - phases["h2d"] if forward_of is None else \
+            phases["step"]
+        phases["other"] = wall - sum(phases[k] for k in ("first", "wait", "step", "log")) - (
+            phases["h2d"] if forward_of is not None else 0.0)
+        return out, wall, phases
+
+
+def flat_state(obj, prefix=""):
+    """(key path, leaf) pairs of nested dicts and lists."""
+    if isinstance(obj, dict):
+        return [x for k, v in obj.items() for x in flat_state(v, f"{prefix}/{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [x for i, v in enumerate(obj) for x in flat_state(v, f"{prefix}/{i}")]
+    return [(prefix, obj)]
+
+
+def state_mismatches(got, want):
+    """Key paths where two Trainer states differ (tensors compared bit for
+    bit on the host)."""
+    fg, fw = flat_state(got), flat_state(want)
+    if [k for k, _ in fg] != [k for k, _ in fw]:
+        return ["structure"]
+    bad = []
+    for (k, a), (_, b) in zip(fg, fw):
+        if isinstance(a, torch.Tensor):
+            if not (a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())):
+                bad.append(k)
+        elif a != b:
+            bad.append(k)
+    return bad
+
+
+def engine_phase(smi, failures, out_dir):
+    """The training and evaluation engine on a synthetic FSCD-147 tree: the
+    readers, the shuffled Batcher with 2 workers, train_one_epoch, a
+    checkpoint, its restore and a resumed epoch, evaluate, infer_detections,
+    counting_summary, COCO AP, and stage 1's loop and stage1_test."""
+    import PIL  # the readers decode JPEGs with Pillow; its absence fails the phase
+
+    from countdetr_tpu_torch.config import TrainConfig, stage1_config, stage2_config
+    from countdetr_tpu_torch.data.batching import Batcher
+    from countdetr_tpu_torch.data.coco_io import CocoJson
+    from countdetr_tpu_torch.data.fscd147 import FSC147Pseudo, FSCD147Eval, FSCD147Exemplars
+    from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
+    from countdetr_tpu_torch.eval.coco_eval import CocoEvaluator
+    from countdetr_tpu_torch.ops import matching
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train import checkpoints, engine
+    from countdetr_tpu_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="engine_")
+    root, ckpt_dir = os.path.join(work, "fscd147"), os.path.join(work, "checkpoints")
+    t = time.perf_counter()
+    make_synthetic_fscd147(root, **ENGINE_TREE)
+    tree_s = time.perf_counter() - t
+
+    def reader(cls, split):
+        ds = cls(root, split)
+        ds.host_normalize = False  # the raw uint8 pipe; the model normalizes on the card
+        return ds
+
+    loader_kw = dict(max_points=700, max_boxes=700, num_workers=2, pack_s2d=True)
+    train_ds = reader(FSC147Pseudo, "train")
+    batcher = Batcher(train_ds, 8, STAGE1_BUCKETS, shuffle=True, seed=42, box_tiers=BOX_TIERS,
+                      **loader_kw)
+    steps = batcher.num_batches()
+    sched = batcher._schedule()
+    tiers = [key[2] for key, _, _ in sched]
+    rec = {"phase": "engine", "dtype": "bfloat16", "batch": 8, "tree": ENGINE_TREE,
+           "tree_s": tree_s, "jpeg_decode": True, "pillow": PIL.__version__,
+           "steps_per_epoch": steps, "box_tiers_epoch0": tiers, "loops": {}}
+
+    # the matcher's rounds a step, read after the loop (no sync inside it)
+    rounds, caps = [], []
+    real_assign = matching.auction_assign
+
+    def assign_with_rounds(benefit, active, eps, max_iters, scaling=False):
+        assigned, r, _ = real_assign(benefit, active, eps, max_iters, scaling, with_stats=True)
+        rounds.append(r)
+        caps.append(max_iters)
+        return assigned
+
+    def loop(name, fn, want, n_img, profiled=False, forward_of=None):
+        """Run one loop with its launch counts, host phases, peak memory and,
+        when ``profiled``, the device's idle share over it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernels)
+        prof = None
+        if profiled:
+            (out, wall, phases), prof = profile_run(lambda: clock.run(fn, forward_of))
+        else:
+            out, wall, phases = clock.run(fn, forward_of)
+        launches = launch_counts(*kernels)
+        if launches != want:
+            failures.append(("engine launches", name, launches, want))
+        rec["loops"][name] = {"wall_s": wall, "images": n_img, "img_per_s": n_img / wall,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "host_s": phases, "launches": launches,
+                              "launches_expected": want, "profile": prof}
+        return out
+
+    def train_want(n, variant="v3", auction=True):
+        key = "rcda" if variant == "v3" else "rcda_rank1"
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if auction else 0}
+        w[key] = 12 * n
+        return w
+
+    matching.auction_assign = assign_with_rounds
+    clock = HostClock(engine, ts)
+    try:
+        with clock:
+            # 2. stage 2: epoch 0, a checkpoint, epoch 1; a second trainer
+            # restored from the checkpoint runs epoch 1 again
+            cfg2 = stage2_config(compute_dtype="bfloat16")
+            trainer = ts.Trainer(cfg2, TrainConfig(), device="cuda", seed=0,
+                                 steps_per_epoch=steps)
+            stats0 = loop("stage2_epoch0", lambda: engine.train_one_epoch(trainer, batcher, 0),
+                          train_want(steps), 48)
+            # per step: each image's rounds and the step's cap (16T + 2048 when T > Q)
+            rounds0 = [([int(x) for x in r.cpu()], int(c)) for r, c in zip(rounds, caps)]
+            saver = checkpoints.AsyncSaver()
+            snapshot = checkpoints._host_copy(trainer.state_dict())
+            t = time.perf_counter()
+            saver.save(ckpt_dir, 0, trainer, {"epoch": 0})
+            save_return_s = time.perf_counter() - t
+            saver.finalize()
+            save_total_s = time.perf_counter() - t
+            stats1 = loop("stage2_epoch1", lambda: engine.train_one_epoch(
+                trainer, batcher, 1, log_every=1), train_want(steps), 48, profiled=True)
+
+            resumed = ts.Trainer(cfg2, TrainConfig(), device="cuda", seed=1,
+                                 steps_per_epoch=steps)
+            step = checkpoints.latest_step(ckpt_dir)
+            t = time.perf_counter()
+            meta = checkpoints.restore_checkpoint(ckpt_dir, step, resumed)
+            restore_s = time.perf_counter() - t
+            mismatched = state_mismatches(resumed.state_dict(), snapshot)
+            if step != 0 or meta.get("epoch") != 0 or mismatched:
+                failures.append(("engine restore", step, meta.get("epoch"), mismatched[:5]))
+            batcher.epoch = 1  # the resumed run sees epoch 1's schedule again
+            stats_r = loop("stage2_epoch1_resumed", lambda: engine.train_one_epoch(
+                resumed, batcher, 1, log_every=1), train_want(steps), 48)
+            rel = abs(stats_r["loss"] - stats1["loss"]) / abs(stats1["loss"])
+            if not rel <= 1e-2:
+                failures.append(("engine resumed loss", stats_r["loss"], stats1["loss"]))
+            batcher.close()
+            if not all(np.isfinite(v) for st in (stats0, stats1, stats_r) for v in st.values()):
+                failures.append(("engine non-finite stats", stats0, stats1, stats_r))
+            del resumed, snapshot
+            for name in ("checkpoint_0.meta.json", "latest.json"):
+                shutil.copy(os.path.join(ckpt_dir, name), out_dir)
+            ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, "checkpoint_0",
+                                                      checkpoints.PAYLOAD))
+            rec["stage2"] = {
+                "epochs": {"0": stats0, "1": stats1, "1_resumed": stats_r},
+                "resumed_loss_rel_err": rel, "restore_bit_equal": not mismatched,
+                "restored_step": step, "opt_step": meta.get("opt_step"),
+                "checkpoint_bytes": ckpt_bytes, "save_return_s": save_return_s,
+                "save_commit_s": save_total_s, "restore_s": restore_s,
+                "auction_rounds_and_cap_epoch0": rounds0,
+                "auction_images_at_cap_epoch0": sum(x >= c for r, c in rounds0 for x in r)}
+
+            # 3. evaluation on the trained weights
+            val_b = Batcher(reader(FSC147Pseudo, "val"), 8, STAGE1_BUCKETS, box_tiers=BOX_TIERS,
+                            **loader_kw)
+            n_val = val_b.num_batches()
+            vstats = loop("evaluate", lambda: engine.evaluate(trainer, val_b),
+                          train_want(n_val), 16, profiled=True)
+            val_b.close()
+            test_ds = reader(FSCD147Eval, "test")
+            n_test = len(Batcher(test_ds, 8, STAGE1_BUCKETS, **loader_kw))
+            pred_path = os.path.join(out_dir, "predictions_test.json")
+            model = trainer.model
+            results = loop("infer_detections", lambda: engine.infer_detections(
+                model, test_ds, pred_path, batch_size=8, buckets=STAGE1_BUCKETS, **loader_kw),
+                train_want(n_test, auction=False), 16, profiled=True, forward_of=model)
+            counting = engine.counting_summary(results)
+            gt = CocoJson(os.path.join(root, "instances_test.json"))
+            ev = CocoEvaluator()
+            for r in results:
+                b = np.asarray(r["boxes_cxcywh_px"], np.float64).reshape(-1, 4)
+                xywh = np.concatenate([b[:, :2] - b[:, 2:] / 2, b[:, 2:]], 1)
+                ev.add_image(xywh, r["scores"], [a["bbox"] for a in gt.anns_for(r["image_id"])])
+            t = time.perf_counter()
+            ap = ev.summarize()
+            ap_s = time.perf_counter() - t
+            metrics = {"val": vstats, "test_counting": counting, "test_ap": ap}
+            with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+                json.dump(metrics, f, indent=2)
+            finite = all(np.isfinite(v) for d in (vstats, counting, ap) for v in d.values())
+            if not (finite and len(results) == 16 and os.path.exists(pred_path)):
+                failures.append(("engine evaluation", metrics))
+            rec["evaluation"] = {**metrics, "ap_s": ap_s,
+                                 "count_pred": [r["count_pred"] for r in results],
+                                 "count_gt": [r["count_gt"] for r in results]}
+            del trainer, model
+
+            # 4. stage 1 under rank-1: one epoch of 6 steps, then stage1_test
+            s1_b = Batcher(reader(FSCD147Exemplars, "train"), 8, STAGE1_BUCKETS, shuffle=True,
+                           seed=42, **loader_kw)
+            n_s1 = s1_b.num_batches()
+            t1 = ts.Trainer(stage1_config(compute_dtype="bfloat16", rcda_variant="rank1"),
+                            TrainConfig(), device="cuda", seed=0, steps_per_epoch=n_s1)
+            s1_stats = loop("stage1_epoch0", lambda: engine.train_one_epoch(t1, s1_b, 0),
+                            train_want(n_s1, "rank1", auction=False), 48, profiled=True)
+            s1_b.close()
+            s1_path = os.path.join(out_dir, "pseudo_test_anchor_detr_v3.json")
+            loop("stage1_test", lambda: engine.stage1_test(
+                t1.model, test_ds, s1_path, batch_size=8, buckets=STAGE1_BUCKETS, **loader_kw),
+                train_want(n_test, "rank1", auction=False), 16, profiled=True,
+                forward_of=t1.model)
+            with open(s1_path) as f:
+                s1_json = json.load(f)
+            boxes = np.asarray([a["bbox"] for a in s1_json["annotations"]], np.float64)
+            if not (n_s1 == 6 and s1_stats["steps"] == 6 and len(s1_json["images"]) == 16
+                    and len(boxes) == 16 * 100 and np.isfinite(boxes).all()):
+                failures.append(("engine stage 1", n_s1, s1_stats, len(boxes)))
+            rec["stage1"] = {"rcda_variant": "rank1", "epoch0": s1_stats,
+                             "stage1_test_annotations": len(boxes)}
+            del t1
+    finally:
+        matching.auction_assign = real_assign
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["outputs"] = sorted(os.listdir(out_dir))
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return {name: r["launches"] for name, r in rec["loops"].items()}
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -878,8 +1240,11 @@ def ptxas_report(build_dir, names):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction"),
-                    help="build, then check only these kernels (cases and edge cases) and stop")
+    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction", "engine"),
+                    help="build, then check only these kernels (cases and edge cases), or run "
+                         "only the engine phase, and stop")
+    ap.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"),
+                    help="directory for the engine phase's JSON outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -915,8 +1280,15 @@ def main(argv=None) -> int:
 
     # 2. each kernel against its plain version, at the main path's shapes
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.only == ["engine"]:
+        failures = []
+        engine_phase(smi, failures, args.out)
+        if failures:
+            print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
+        return 1 if failures else 0
     if args.only:
-        return only_kernels(args.only, g, rcda_kernel, mha_kernel, auction_kernel, matching)
+        return only_kernels([k for k in args.only if k != "engine"], g, rcda_kernel, mha_kernel,
+                            auction_kernel, matching)
     # B=32: the serving throughput batch; B=8 bf16: the train step's
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
                   for dt in (torch.bfloat16, torch.float32)]
@@ -1028,12 +1400,16 @@ def main(argv=None) -> int:
     stage1_launches = stage1_train_phase(rng, smi, failures)
     pseudo_launches = pseudo_label_phase(rng, smi, failures)
 
+    # 8. the training and evaluation engine over a synthetic FSCD-147 tree
+    engine_launches = engine_phase(smi, failures, args.out)
+
     # pseudo_label: one timed run of each variant together (the phase line
     # has them apart)
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
                     for k in pseudo_launches["v3"]}
     paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
              "pseudo_label": pseudo_total}
+    paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
 
     def summary(key, replaces, source, cases, main_case, main_count):
         return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -1121,14 +1497,23 @@ def profile_calls(fn, calls, top=12):
     """Device time by kernel name over ``calls`` calls of ``fn``
     (torch.profiler), the device's busy share of the wall time, and the
     largest entries."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return profile_run(run, top)[1] | {"calls": calls}
+
+
+def profile_run(fn, top=12):
+    """(fn(), its profile): device time by kernel name (torch.profiler), the
+    device's busy share of the wall time and the largest entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     rows = []
@@ -1142,8 +1527,8 @@ def profile_calls(fn, calls, top=12):
         rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    return {
-        "calls": calls, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+    return out, {
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:top]],
     }

@@ -1,12 +1,12 @@
 """Fixed-shape batching on the host (countdetr_tpu/data/batching.py): pad an
 image into its (H, W) bucket, space-to-depth pack a batch, pad points and
 boxes to capacities with validity masks, group samples into batches
-(``Batcher``) and prefetch them on a thread. Pure numpy.
+(``Batcher``: shuffled or not, samples loaded in this process or in a
+worker pool, data/loader.py) and prefetch them on a thread. Pure numpy.
 
-Left out against the JAX package, for the training engine and data parallelism:
-the worker pool that decodes samples in other processes (``num_workers``)
-and the multi-process global schedule (``process_index``/``process_count``,
-data parallelism); also the ``sampled_points`` of the sampled prior.
+Left out against the JAX package, for data parallelism: the multi-process
+global schedule (``process_index``/``process_count``); also the
+``sampled_points`` of the sampled prior.
 """
 
 from __future__ import annotations
@@ -78,6 +78,13 @@ def pack_space_to_depth(images: np.ndarray) -> np.ndarray:
     )
 
 
+def unpack_space_to_depth(images: np.ndarray) -> np.ndarray:
+    """Inverse of pack_space_to_depth: (B, H/2, W/2, 4C) -> (B, H, W, C)."""
+    B, H2, W2, C4 = images.shape
+    out = images.reshape(B, H2, W2, 2, 2, C4 // 4).transpose(0, 1, 3, 2, 4, 5)
+    return np.ascontiguousarray(out).reshape(B, H2 * 2, W2 * 2, C4 // 4)
+
+
 def pad_rows(x: np.ndarray, n: int, dims: int):
     """Pad a (k, dims) array to (n, dims) and its validity (n,); rows past n
     are dropped."""
@@ -109,10 +116,16 @@ class Batcher:
     ``point_tiers`` (ascending capacities) the point capacity is the
     smallest tier that holds all its points, else ``max_points``;
     ``box_tiers`` likewise for boxes. Pseudo-labelling uses point tiers so
-    that no annotated point is dropped. The schedule is deterministic in
-    dataset order; full groups are emitted as they fill, the partial ones
-    at the end. (Shuffling and dropping the remainder come with the training
-    loops.)
+    that no annotated point is dropped.
+
+    The schedule: the dataset's order, or with ``shuffle`` a permutation
+    drawn from ``np.random.default_rng(seed + epoch)``, where ``epoch``
+    counts the epochs begun (each ``iter`` starts the next); full groups
+    are emitted as they fill, the partial ones at the end unless
+    ``drop_remainder``; ``step_cap`` cuts the schedule. ``num_workers`` > 0
+    loads the samples in a persistent pool of that many spawned processes
+    (data/loader.py), with the same batches as the serial path;
+    ``close()`` stops it.
     """
 
     def __init__(
@@ -122,8 +135,12 @@ class Batcher:
         buckets: Sequence[Tuple[int, int]],
         max_points: int = 700,
         max_boxes: int = 700,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_remainder: bool = False,
         point_tiers: Optional[Sequence[int]] = None,
         box_tiers: Optional[Sequence[int]] = None,
+        num_workers: int = 0,
         pack_s2d: bool = False,
     ):
         self.ds = dataset
@@ -133,6 +150,13 @@ class Batcher:
         self.max_boxes = max_boxes
         self.point_tiers = tuple(sorted(point_tiers)) if point_tiers else None
         self.box_tiers = tuple(sorted(box_tiers)) if box_tiers else None
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.step_cap: Optional[int] = None
+        self.epoch = 0
+        self.num_workers = num_workers
+        self._loader = None  # the worker pool, started by the first iter
         self.pack_s2d = pack_s2d
         self._warned_truncation = False
         # (bucket, n_points, n_boxes) per sample index, epoch-invariant
@@ -240,29 +264,56 @@ class Batcher:
         return m
 
     def _schedule(self) -> List[Tuple[Tuple, List[int], int]]:
-        """The batches: [(key, indices, n_real)] with key = (bucket, point
-        capacity, box capacity); indices has batch_size entries, a partial
-        group padded by repeating its last sample."""
+        """The current epoch's batches: [(key, indices, n_real)] with key =
+        (bucket, point capacity, box capacity); indices has batch_size
+        entries, a partial group padded by repeating its last sample."""
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
         sched: List[Tuple[Tuple, List[int], int]] = []
         pending: Dict[Tuple, List[int]] = {}
-        for i in range(len(self.ds)):
+        for i in order.tolist():
             bucket, n_pts, n_boxes = self._meta(i)
             key = (bucket, self._capacity(n_pts, self.max_points, self.point_tiers),
                    self._capacity(n_boxes, self.max_boxes, self.box_tiers))
             pending.setdefault(key, []).append(i)
             if len(pending[key]) == self.bs:
                 sched.append((key, pending.pop(key), self.bs))
-        for key, rest in pending.items():
-            sched.append((key, rest + [rest[-1]] * (self.bs - len(rest)), len(rest)))
+        if not self.drop_remainder:
+            for key, rest in pending.items():
+                sched.append((key, rest + [rest[-1]] * (self.bs - len(rest)), len(rest)))
+        if self.step_cap is not None:
+            sched = sched[:self.step_cap]
         return sched
 
     def __iter__(self) -> Iterator[Dict]:
-        for (bucket, pt_cap, box_cap), idxs, n_real in self._schedule():
+        plan = self._schedule()
+        self.epoch += 1
+        if self.num_workers > 0 and plan:
+            from countdetr_tpu_torch.data.loader import SampleLoader, iter_batches_parallel
+
+            if self._loader is None:
+                self._loader = SampleLoader(self.ds, self.num_workers)
+            yield from iter_batches_parallel(self, plan)
+            return
+        for (bucket, pt_cap, box_cap), idxs, n_real in plan:
             samples = [self.ds[i] for i in idxs[:n_real]]
             yield self._assemble(samples, bucket, pt_cap, box_cap, n_real)
 
     def __len__(self) -> int:
+        return self.num_batches()
+
+    def num_batches(self) -> int:
+        """The batches of the current epoch. Without ``step_cap`` the count
+        does not depend on the shuffle: each key gives ceil(n / batch_size)
+        batches (floor with ``drop_remainder``)."""
         return len(self._schedule())
+
+    def close(self):
+        """Stop the worker pool, if one was started."""
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
 
 
 def prefetch(it: Iterable, depth: int = 2) -> Iterator:

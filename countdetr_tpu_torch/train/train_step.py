@@ -164,3 +164,18 @@ class Trainer:
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The losses of a batch, without an update."""
         return self._loss(batch)[1]
+
+    def state_dict(self) -> Dict:
+        """Everything a resumed run needs (train/checkpoints.py): weights and
+        buffers, the optimizer's moments and step counts, the scheduler's
+        position, ``bad_steps`` and the optimizer step. References to the
+        live tensors, not copies."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "bad_steps": self.bad_steps,
+                "step": self.scheduler.last_epoch}
+
+    def load_state_dict(self, state: Dict):
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.bad_steps.copy_(state["bad_steps"])
