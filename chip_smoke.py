@@ -88,7 +88,21 @@ Phases, each printed as one JSON line:
             per image of epoch 0 and how many hit the cap. JSONs land in
             --out (the checkpoint's meta and latest.json, not its ~0.5 GB
             payload).
-Then the kernels line with each path's launch counts, the card's
+  cli       the port's command line at full width in bfloat16 on a
+            synthetic FSCD-147 tree of the engine's shape without pseudo
+            labels: stage-1 train (6 steps, rank-1), --generate_pseudo_label
+            into the tree (a box for every dot), stage-2 train for 2 epochs
+            cut by --max_steps, the same with --auto_resume and --epochs 3
+            (resumed at epoch 2 at the saved optimizer step), --eval,
+            --infer, --evaluate_predictions as a `python -m` subprocess (its
+            counting metrics equal metrics.json's), stage-1 --test (rank-1),
+            and cli/bench.py's train, match, e2e and flops modes; per mode
+            the wall seconds, img/s, forwards and launches (12 RCDA or
+            rank-1 and 6 MHA a forward, 1 auction a stage-2 train or eval
+            step), the files written, peak memory and no worker process
+            left; the modes' output in --out/cli/.
+Then the kernels line with each path's launch counts (its "launches": the
+cli phase's pipeline modes), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
 
@@ -97,6 +111,8 @@ non-zero; without a CUDA device nothing is printed on stdout.
                                                  # (rcda, rank1, mha, auction)
     python3 chip_smoke.py --only engine          # build, then only the
                                                  # engine phase
+    python3 chip_smoke.py --only cli             # build, then only the
+                                                 # cli phase
 """
 
 from __future__ import annotations
@@ -1175,6 +1191,270 @@ def engine_phase(smi, failures, out_dir):
     return {name: r["launches"] for name, r in rec["loops"].items()}
 
 
+# the cli phase: the engine tree's shape, without pseudo labels (stage 1
+# writes them); the CLI's flags at full width (the parser's defaults:
+# ResNet-50-DC5, hidden 256, 8 heads, 6+6 layers, FFN 1024) in bfloat16
+CLI_TREE = dict(ENGINE_TREE, with_pseudo=False)
+CLI_FLAGS = ["--compute_dtype", "bfloat16", "--batch_size", "8", "--num_workers", "2",
+             "--log_every", "1", "--device", "cuda"]
+CLI_STAGE1 = ["--stage", "1", "--spatial_prior", "defined", "--num_query_pattern", "1",
+              "--num_query_position", "3"]
+CLI_STAGE2 = ["--stage", "2", "--spatial_prior", "grid", "--num_query_position", "600",
+              "--num_query_pattern", "1", "--no_aux_loss"]
+CLI_BENCH = {
+    "train": ["--mode", "train", "--queries", "600", "--max_boxes", "700", "--size", "592"],
+    "match": ["--mode", "match"],
+    "e2e": ["--mode", "e2e", "--n_images", "32"],
+    "flops": ["--mode", "flops"],
+}
+CLI_BENCH_DEVICE = "cuda"
+
+
+def cli_phase(smi, failures, out_dir):
+    """The port's command line over a synthetic FSCD-147 tree: stage-1
+    train (rank-1), pseudo-labels (v3), stage-2 train, its auto-resume,
+    --eval, --infer, --evaluate_predictions (a python -m subprocess),
+    stage-1 --test (rank-1), and the bench modes. Each in-process mode runs
+    with the launch counters zeroed before and read after, against 12 RCDA
+    (or rank-1) and 6 MHA launches a forward and one auction launch a
+    stage-2 train or eval step."""
+    import contextlib
+    import multiprocessing
+
+    from countdetr_tpu_torch.cli import bench
+    from countdetr_tpu_torch.cli import main as cli
+    from countdetr_tpu_torch.data.batching import Batcher
+    from countdetr_tpu_torch.data.fscd147 import FSC147Pseudo
+    from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
+    from countdetr_tpu_torch.models.anchor_detr import CountingDetr
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train import engine
+
+    t_phase = time.perf_counter()
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    work = tempfile.mkdtemp(prefix="cli_")
+    root = os.path.join(work, "fscd147")
+    s1, s2 = os.path.join(work, "stage1"), os.path.join(work, "stage2")
+    logs = os.path.join(out_dir, "cli")
+    os.makedirs(logs, exist_ok=True)
+    t = time.perf_counter()
+    make_synthetic_fscd147(root, **CLI_TREE)
+    rec = {"phase": "cli", "dtype": "bfloat16", "tree": CLI_TREE,
+           "tree_s": time.perf_counter() - t, "modes": {}}
+
+    forwards = [0]
+
+    def count_forward(module, args, output):
+        if isinstance(module, CountingDetr):
+            forwards[0] += 1
+
+    epochs = []  # (steps, real samples, seconds) of each train_one_epoch call
+    real_epoch = engine.train_one_epoch
+
+    def timed_epoch(*a, **k):
+        t0 = time.perf_counter()
+        stats = real_epoch(*a, **k)
+        epochs.append((stats["steps"], stats["real_samples"], time.perf_counter() - t0))
+        return stats
+
+    def want(n, variant="v3", matching=False):
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if matching else 0}
+        w["rcda" if variant == "v3" else "rcda_rank1"] = 12 * n
+        return w
+
+    def run(name, call, want_of, variant="v3", out=None, images=None):
+        """call() with its stdout in cli/{name}.txt, the launch counters and
+        the forward count zeroed before and read after."""
+        os.environ["COUNTDETR_PALLAS_VARIANT"] = variant
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernels)
+        forwards[0] = 0
+        del epochs[:]
+        t0 = time.perf_counter()
+        with open(os.path.join(logs, f"{name}.txt"), "w") as f, contextlib.redirect_stdout(f):
+            result = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, n = launch_counts(*kernels), forwards[0]
+        expected = want_of(n)
+        if launches != expected:
+            failures.append(("cli launches", name, n, launches, expected))
+        leftover = multiprocessing.active_children()
+        if leftover:
+            failures.append(("cli workers left", name, len(leftover)))
+        r = {"wall_s": wall, "forwards": n, "launches": launches,
+             "launches_expected": expected,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if images is not None:
+            r["images"], r["img_per_s"] = images, images / wall
+        if epochs:
+            r["epochs"] = [{"steps": s, "real_samples": n_, "seconds": sec,
+                            "img_per_s": n_ / sec} for s, n_, sec in epochs]
+            r["train_img_per_s"] = sum(e[1] for e in epochs) / sum(e[2] for e in epochs)
+        if out is not None:
+            r["files"] = sorted(os.listdir(out))
+        rec["modes"][name] = r
+        return result
+
+    def cli_run(name, out, argv, matching=False, variant="v3", images=None):
+        args = cli.get_args_parser().parse_args(
+            ["--data_path", root, "--output_dir", out] + CLI_FLAGS + argv)
+        return run(name, lambda: cli.main(args), lambda n: want(n, variant, matching),
+                   variant, out, images)
+
+    def read_log(out):
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = [json.loads(x) for x in f]
+        if not all(np.isfinite(v) for x in lines for v in x.values() if isinstance(v, float)):
+            failures.append(("cli non-finite log", out, lines))
+        return lines
+
+    def split_images(split):
+        with open(os.path.join(root, "Train_Test_Val_FSC_147.json")) as f:
+            return json.load(f)[split]
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
+    engine.train_one_epoch = timed_epoch
+    try:
+        # 1. stage-1 train, one epoch of 6 steps (and its val losses), rank-1
+        t1 = cli_run("stage1_train", s1, CLI_STAGE1 + ["--epochs", "1", "--max_steps", "6"],
+                     variant="rank1")
+        lines = read_log(s1)
+        if not (t1.scheduler.last_epoch == 6 and [x["epoch"] for x in lines] == [0]):
+            failures.append(("cli stage-1 train", t1.scheduler.last_epoch, lines))
+        del t1
+
+        # 2. pseudo-labels into the tree, one box a dot
+        ann = os.path.join(root, "annotations")
+        cli_run("generate_pseudo_label", ann, CLI_STAGE1 + [
+            "--generate_pseudo_label", "--resume", os.path.join(s1, "checkpoints")],
+            images=sum(len(split_images(s)) for s in ("train", "val", "test")))
+        with open(os.path.join(root, "annotation_FSC147_384.json")) as f:
+            dots = json.load(f)
+        pseudo = {}
+        for split in ("train", "val", "test"):
+            with open(os.path.join(ann, f"pseudo_bbox_{split}.json")) as f:
+                p = json.load(f)
+            per_image = {}
+            for a in p["annotations"]:
+                per_image[a["image_id"]] = per_image.get(a["image_id"], 0) + 1
+            want_counts = {im["id"]: len(dots[im["file_name"]]["points"]) for im in p["images"]}
+            pseudo[split] = {"images": len(p["images"]), "annotations": len(p["annotations"]),
+                             "dots": sum(want_counts.values())}
+            if per_image != want_counts or len(p["images"]) != len(split_images(split)):
+                failures.append(("cli pseudo counts", split, pseudo[split]))
+        rec["pseudo_labels"] = pseudo
+
+        # 3. stage 2: two epochs, the second cut by --max_steps, then the
+        # same output directory with --auto_resume for a third epoch
+        spe = Batcher(FSC147Pseudo(root, "train"), 8, STAGE1_BUCKETS, max_boxes=700,
+                      box_tiers=BOX_TIERS).num_batches()
+        max_steps = spe + min(3, spe - 1)
+        t2 = cli_run("stage2_train", s2, CLI_STAGE2 + [
+            "--epochs", "2", "--max_steps", str(max_steps)], matching=True)
+        lines = read_log(s2)
+        if not (t2.scheduler.last_epoch == max_steps and [x["epoch"] for x in lines] == [0, 1]):
+            failures.append(("cli stage-2 train", t2.scheduler.last_epoch, max_steps, lines))
+        del t2
+        t3 = cli_run("stage2_auto_resume", s2, CLI_STAGE2 + ["--epochs", "3", "--auto_resume"],
+                     matching=True)
+        with open(os.path.join(logs, "stage2_auto_resume.txt")) as f:
+            resumed_line = next((x.strip() for x in f if x.startswith("auto-resumed")), None)
+        lines = read_log(s2)
+        ok = (resumed_line == f"auto-resumed: continuing at epoch 2, optimizer step {max_steps}"
+              and t3.scheduler.last_epoch == max_steps + spe
+              and [x["epoch"] for x in lines] == [0, 1, 2])
+        if not ok:
+            failures.append(("cli auto-resume", resumed_line, t3.scheduler.last_epoch, lines))
+        rec["stage2"] = {"steps_per_epoch": spe, "max_steps": max_steps,
+                         "resumed": resumed_line, "opt_step_after": t3.scheduler.last_epoch,
+                         "log": lines}
+        del t3
+        ckpt_dir = os.path.join(s2, "checkpoints")
+
+        # 4. --eval, 5. --infer, then the offline evaluator as a subprocess
+        vstats = cli_run("eval", s2, CLI_STAGE2 + ["--eval", "--checkpoint_path", ckpt_dir],
+                         matching=True, images=len(split_images("val")))
+        if not (vstats and all(np.isfinite(v) for v in vstats.values())):
+            failures.append(("cli eval", vstats))
+        metrics = cli_run("infer", s2, CLI_STAGE2 + ["--infer", "--checkpoint_path", ckpt_dir],
+                          images=len(split_images("val")) + len(split_images("test")))
+        if not all(np.isfinite(v) for m in metrics.values() for v in m.values()):
+            failures.append(("cli infer", metrics))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "countdetr_tpu_torch.cli.main", "--data_path", root,
+             "--output_dir", s2, "--evaluate_predictions",
+             os.path.join(s2, "predictions_test.json"), "--eval_split", "test"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        sub = {"returncode": proc.returncode, "wall_s": time.perf_counter() - t}
+        with open(os.path.join(logs, "evaluate_predictions.txt"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        offline = (json.loads(proc.stdout[proc.stdout.index("{"):])
+                   if proc.returncode == 0 else {})
+        counting = ("MAE", "RMSE", "NAE", "MRE", "SRE", "images")
+        sub["counting_equal"] = bool(offline) and all(
+            offline[k] == metrics["test"][k] for k in counting)
+        # AP of the file's int() pixel boxes against metrics.json's, of the
+        # float boxes (the JAX CLI's two numbers differ the same way)
+        sub["ap_equal"] = bool(offline) and all(
+            offline[k] == v for k, v in metrics["test"].items() if k not in counting)
+        sub["offline"] = offline
+        # the subprocess prints what the evaluator computes here on that file
+        sub["equals_in_process"] = offline == json.loads(json.dumps(
+            cli.offline_eval.evaluate_predictions(os.path.join(s2, "predictions_test.json"),
+                                                  root, split="test")))
+        if not (sub["counting_equal"] and sub["equals_in_process"]):
+            failures.append(("cli evaluate_predictions", sub, proc.stderr[-2000:]))
+        rec["modes"]["evaluate_predictions"] = sub
+        rec["metrics"] = metrics
+
+        # 6. stage-1 --test from the stage-1 checkpoint, rank-1
+        cli_run("stage1_test", s1, CLI_STAGE1 + [
+            "--test", "--checkpoint_path", os.path.join(s1, "checkpoints")], variant="rank1",
+            images=len(split_images("test")))
+        with open(os.path.join(s1, "pseudo_test_anchor_detr_v3.json")) as f:
+            s1_test = json.load(f)
+        boxes = np.asarray([a["bbox"] for a in s1_test["annotations"]], np.float64)
+        if not (len(s1_test["images"]) == len(split_images("test"))
+                and len(boxes) == 100 * len(s1_test["images"]) and np.isfinite(boxes).all()):
+            failures.append(("cli stage-1 test", len(s1_test["images"]), len(boxes)))
+
+        for src, name in ((s1, "log.txt"), (s2, "log.txt"), (s2, "metrics.json"),
+                          (s2, "eval.json")):
+            shutil.copy(os.path.join(src, name),
+                        os.path.join(logs, f"{os.path.basename(src)}_{name}"))
+
+        # 7. the bench modes
+        rec["bench"] = {}
+        for mode, argv in CLI_BENCH.items():
+            iters = 10  # the tool's default
+            want_of = {
+                "train": lambda n: want(n, matching=True),
+                "e2e": lambda n: want(n, matching=True),
+                "match": lambda n: {"rcda": 0, "rcda_rank1": 0, "mha": 0,
+                                    "auction": 3 * (iters + 1)},
+                "flops": lambda n: want(0),  # counted on the CPU, plain path
+            }[mode]
+            args = bench.get_args_parser().parse_args(argv + ["--device", CLI_BENCH_DEVICE])
+            line = run(f"bench_{mode}", lambda: bench.main(args), want_of)
+            rec["bench"][mode] = line
+            keys = {"train": "img_per_s_per_chip", "e2e": "img_per_s_e2e",
+                    "match": "cuda_detr_ms", "flops": "gflops_per_image"}[mode]
+            if not (keys in line and np.isfinite(line[keys]) and line[keys] > 0):
+                failures.append(("cli bench", mode, line))
+    finally:
+        hook.remove()
+        engine.train_one_epoch = real_epoch
+        os.environ.pop("COUNTDETR_PALLAS_VARIANT", None)
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return {name: r["launches"] for name, r in rec["modes"].items() if "launches" in r}
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -1240,11 +1520,12 @@ def ptxas_report(build_dir, names):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction", "engine"),
+    ap.add_argument("--only", nargs="+",
+                    choices=("rcda", "rank1", "mha", "auction", "engine", "cli"),
                     help="build, then check only these kernels (cases and edge cases), or run "
-                         "only the engine phase, and stop")
+                         "only the engine and/or cli phases, and stop")
     ap.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"),
-                    help="directory for the engine phase's JSON outputs")
+                    help="directory for the engine and cli phases' outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1280,15 +1561,18 @@ def main(argv=None) -> int:
 
     # 2. each kernel against its plain version, at the main path's shapes
     g = torch.Generator(device="cuda").manual_seed(0)
-    if args.only == ["engine"]:
+    if args.only and set(args.only) <= {"engine", "cli"}:
         failures = []
-        engine_phase(smi, failures, args.out)
+        if "engine" in args.only:
+            engine_phase(smi, failures, args.out)
+        if "cli" in args.only:
+            cli_phase(smi, failures, args.out)
         if failures:
             print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
         return 1 if failures else 0
     if args.only:
-        return only_kernels([k for k in args.only if k != "engine"], g, rcda_kernel, mha_kernel,
-                            auction_kernel, matching)
+        return only_kernels([k for k in args.only if k not in ("engine", "cli")], g, rcda_kernel,
+                            mha_kernel, auction_kernel, matching)
     # B=32: the serving throughput batch; B=8 bf16: the train step's
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
                   for dt in (torch.bfloat16, torch.float32)]
@@ -1403,6 +1687,13 @@ def main(argv=None) -> int:
     # 8. the training and evaluation engine over a synthetic FSCD-147 tree
     engine_launches = engine_phase(smi, failures, args.out)
 
+    # 9. the command line over a synthetic FSCD-147 tree: this slice's main
+    # path, each mode read with the counters zeroed just before it
+    cli_launches = cli_phase(smi, failures, args.out)
+    cli_main = {k: sum(c[k] for name, c in cli_launches.items() if not name.startswith("bench"))
+                for k in ("rcda", "rcda_rank1", "mha", "auction")}
+    failures += [("cli path launched no", k) for k, n in cli_main.items() if n == 0]
+
     # pseudo_label: one timed run of each variant together (the phase line
     # has them apart)
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
@@ -1410,6 +1701,7 @@ def main(argv=None) -> int:
     paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
              "pseudo_label": pseudo_total}
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
+    paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})
 
     def summary(key, replaces, source, cases, main_case, main_count):
         return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -1423,9 +1715,9 @@ def main(argv=None) -> int:
                 "library_ms": main_case["library_ms"], "cases": cases}
 
     # times at stage 1's shapes (B=8 bf16: the encoder in the
-    # 384x672 bucket, MHA over the 5600-point tier); launches from the
-    # pseudo-label runs, the auction's from the stage-2 train step (stage 1
-    # has no matching)
+    # 384x672 bucket, MHA over the 5600-point tier); launches from the cli
+    # phase's pipeline modes (stage-1 train and test under rank-1, the rest
+    # under v3; the bench modes are in launches_by_path only)
     def pick(cases, **shape):
         return next(c for c in cases if c["dtype"] == "bfloat16"
                     and all(c["shape"][k] == v for k, v in shape.items()))
@@ -1435,19 +1727,19 @@ def main(argv=None) -> int:
         summary("rcda", "countdetr_tpu/ops/pallas/rcda_kernel.py:213 fused_rcda",
                 "countdetr_tpu_torch/csrc/rcda.cu",
                 [c for c in rcda_cases if c["dtype"] == "bfloat16"],
-                pick(rcda_cases, B=8, L=1008), pseudo_total["rcda"]),
+                pick(rcda_cases, B=8, L=1008), cli_main["rcda"]),
         summary("rcda_rank1", "countdetr_tpu/ops/pallas/rcda_kernel.py:153 fused_rcda_rank1",
                 "countdetr_tpu_torch/csrc/rcda_rank1.cu",
                 [c for c in rank1_cases if c["dtype"] == "bfloat16"],
-                pick(rank1_cases, B=8, L=1008), pseudo_total["rcda_rank1"]),
+                pick(rank1_cases, B=8, L=1008), cli_main["rcda_rank1"]),
         summary("mha", "countdetr_tpu/ops/pallas/mha_kernel.py:64 fused_mha",
                 "countdetr_tpu_torch/csrc/mha.cu",
                 [c for c in mha_cases if c["dtype"] == "bfloat16"],
-                pick(mha_cases, B=8, S=5600), pseudo_total["mha"]),
+                pick(mha_cases, B=8, S=5600), cli_main["mha"]),
         summary("auction", "countdetr_tpu/ops/pallas/auction_kernel.py:130 auction_assign",
                 "countdetr_tpu_torch/csrc/auction.cu",
                 [{k: c[k] for k in ("case", "max_abs_err", "identical") if k in c}
-                 for c in auctions], auction_main, train_launches["auction"]),
+                 for c in auctions], auction_main, cli_main["auction"]),
     ]})
     if failures:
         print(f"chip_smoke: FAILED {failures}", file=sys.stderr)

@@ -1,9 +1,12 @@
 """Configuration of the port: its own copy of the JAX package's
-``ModelConfig``, ``TrainConfig``, ``stage1_config`` and ``stage2_config``
-(countdetr_tpu/config.py), with the TPU-only knobs (use_pallas_rcda,
-param_dtype, remat, the COUNTDETR_* environment switches other than the
-RCDA variant), the dropout (0 in every published run) and the checkpoint,
-logging and mesh fields left out."""
+``ModelConfig``, ``DataConfig``, ``TrainConfig``, ``Config``,
+``stage1_config`` and ``stage2_config`` (countdetr_tpu/config.py).
+
+Left out: the TPU-only knobs (use_pallas_rcda, param_dtype, remat, the
+COUNTDETR_* environment switches other than the RCDA variant), the dropout
+(0 in every published run; the CLI refuses other values) and
+``TrainConfig.mesh_shape``/``mesh_axes``: the port runs one process on one
+card (core/mesh.py), and data parallelism is queued in ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -73,18 +76,54 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset and fixed-shape batching: images resized to scale_factor
+    multiples and padded into a few (H, W) buckets with a padding mask;
+    points and boxes padded to capacities with validity masks."""
+
+    dataset: str = "fscd_147"  # fscd_147 | fscd_lvis
+    data_path: str = ""
+    scale_factor: int = 32
+    batch_size: int = 8
+    num_workers: int = 2
+    cache_mode: bool = False  # raw image bytes in RAM (reference --cache_mode)
+    decoded_cache: bool = False  # resized uint8 in RAM; overrides cache_mode
+    # resized uint8 in .npz blobs shared by workers and runs (data/cache.py);
+    # overrides decoded_cache and cache_mode
+    decoded_cache_dir: str = ""
+    # True: readers emit ImageNet-normalized float32; False (the CLI's
+    # default): raw resized uint8, normalized by the model on the device
+    host_normalize: bool = True
+    # space-to-depth pack batches on the host (B, H/2, W/2, 12); the CLI
+    # turns it on for the raw uint8 pipe
+    pack_s2d: bool = False
+    num_sampled_points: int = 0  # the sampled prior's points (not in the port's model)
+    max_points: int = 700
+    max_boxes: int = 700
+    max_exemplars: int = 3
+    buckets: Tuple[Tuple[int, int], ...] = ((384, 384), (384, 512), (384, 672))
+
+    def replace(self, **kw) -> "DataConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization, the reference's defaults (main.py:29-45, 96-121)."""
+    """Optimization, the reference's defaults (main.py:29-45, 96-121), and
+    the run: schedule length, seed, checkpoints and logging."""
 
     lr: float = 1e-4
     lr_backbone: float = 1e-5
     weight_decay: float = 1e-4
+    epochs: int = 30
+    max_steps: int = 0  # a cap on the run's train steps (0: none)
     lr_drop: int = 20  # StepLR: lr *= 0.1 every lr_drop epochs
     # MultiStepLR drop epochs; overrides lr_drop when set (reference
     # 2nd-stage main.py:39 --lr_drop_epochs)
     lr_drop_epochs: Optional[Tuple[int, ...]] = None
     clip_max_norm: float = 0.1
     sgd: bool = False
+    seed: int = 42
 
     # loss coefficients
     cls_loss_coef: float = 2.0
@@ -103,7 +142,29 @@ class TrainConfig:
     # the on-device auction
     exact_match: bool = False
 
+    # checkpoints (train/checkpoints.py) and logging
+    output_dir: str = ""
+    resume: str = ""
+    auto_resume: bool = False
+    checkpoint_every: int = 1  # epochs
+    # retention (gc_checkpoints): the keep_last newest, every keep_every-th
+    # epoch and the lr-drop epochs; keep_last <= 0 keeps everything
+    checkpoint_keep_last: int = 1
+    checkpoint_keep_every: int = 10
+    async_checkpoint: bool = True  # AsyncSaver; False blocks on each save
+    log_every: int = 100  # steps
+
     def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = ModelConfig()
+    data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
+
+    def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
 

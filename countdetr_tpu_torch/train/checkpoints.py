@@ -20,6 +20,7 @@ moves only after that, so a crash mid-write resumes from the previous one.
     saver.finalize()                                       # commit, publish
     step = latest_step(out_dir)
     meta = restore_checkpoint(out_dir, step, trainer)      # meta["epoch"]
+    restore_weights(out_dir, step, model)                  # the weights alone
 
 ``load_torch_checkpoint`` reads a reference .pth into the port's
 state_dict; the port's module names are the reference's (weights.py).
@@ -185,21 +186,35 @@ def latest_step(directory: str) -> Optional[int]:
         return int(json.load(f)["step"])
 
 
+def _load_payload(directory: str, step: int) -> Dict:
+    return torch.load(os.path.join(os.path.abspath(directory), f"checkpoint_{step}", PAYLOAD),
+                      map_location="cpu", weights_only=True)
+
+
+def _read_meta(directory: str, step: int) -> Dict:
+    meta_path = os.path.join(os.path.abspath(directory), f"checkpoint_{step}.meta.json")
+    if not os.path.exists(meta_path):
+        return {}
+    with open(meta_path) as f:
+        return json.load(f)
+
+
+def restore_weights(directory: str, step: int, model: torch.nn.Module) -> Dict:
+    """Load only the weights and buffers of checkpoint ``step`` into
+    ``model`` (strict), for the modes that run a model without training it;
+    returns the meta with ``opt_step``."""
+    payload = _load_payload(directory, step)
+    model.load_state_dict(payload["model"])
+    return {**_read_meta(directory, step), "opt_step": int(payload["step"])}
+
+
 def restore_checkpoint(directory: str, step: int, trainer) -> Dict:
     """Load checkpoint ``step`` into ``trainer`` (weights, optimizer moments,
     scheduler position, ``bad_steps``) and return its meta with
     ``opt_step``, the optimizer step it was taken at."""
-    directory = os.path.abspath(directory)
-    payload = torch.load(os.path.join(directory, f"checkpoint_{step}", PAYLOAD),
-                         map_location="cpu", weights_only=True)
+    payload = _load_payload(directory, step)
     trainer.load_state_dict(payload)
-    meta = {}
-    meta_path = os.path.join(directory, f"checkpoint_{step}.meta.json")
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
-    meta["opt_step"] = int(payload["step"])
-    return meta
+    return {**_read_meta(directory, step), "opt_step": int(payload["step"])}
 
 
 # ---------------------------------------------------------------- reference .pth

@@ -111,7 +111,8 @@ def point_tiers(max_points: int) -> Tuple[int, ...]:
 
 def generate_pseudo_labels(
     model, dataset, out_path: str, *, batch_size: int, buckets: Sequence[Tuple[int, int]],
-    max_points: int = 700, pack_s2d: bool = True, also_xywh_path: Optional[str] = None,
+    max_points: int = 700, num_workers: int = 0, pack_s2d: bool = True,
+    also_xywh_path: Optional[str] = None,
 ) -> str:
     """Run the stage-1 ``model`` over every valid point of every real image
     and write the pseudo boxes to ``out_path`` as a COCO JSON whose bbox is
@@ -120,32 +121,36 @@ def generate_pseudo_labels(
     COCO's corner bbox. Pixel values are truncated by ``int()``, as the
     reference does."""
     batcher = Batcher(dataset, batch_size, buckets, max_points=max_points,
-                      point_tiers=point_tiers(max_points), pack_s2d=pack_s2d)
+                      point_tiers=point_tiers(max_points), num_workers=num_workers,
+                      pack_s2d=pack_s2d)
     images: List[Dict] = []
     annotations: List[Dict] = []
     ann_id = 1
-    for batch in prefetch(iter(batcher)):
-        with torch.inference_mode():
-            out = model(*_inputs(model, batch, ("images", "pad_mask", "points",
-                                                "points_valid")))
-            pred_wh = out["pred_wh"].float().cpu().numpy()  # (B, P, 2) normalized
-        pts, pvalid = batch["points"], batch["points_valid"]
-        for i, m in enumerate(batch["meta"]):
-            if not batch["batch_valid"][i]:
-                continue
-            w, h = m["orig_size"]
-            img_id = m.get("image_id", len(images) + 1)
-            images.append({"id": img_id, "file_name": m.get("image_name", f"{img_id}.jpg"),
-                           "height": int(h), "width": int(w)})
-            for j in np.nonzero(pvalid[i])[0]:
-                cx, cy = pts[i, j] * (w, h)
-                bw, bh = pred_wh[i, j] * (w, h)
-                annotations.append({
-                    "id": ann_id, "image_id": img_id, "area": int(bw * bh),
-                    "bbox": [int(cx), int(cy), int(bw), int(bh)],
-                    "category_id": 1, "iscrowd": 0,
-                })
-                ann_id += 1
+    try:
+        for batch in prefetch(iter(batcher)):
+            with torch.inference_mode():
+                out = model(*_inputs(model, batch, ("images", "pad_mask", "points",
+                                                    "points_valid")))
+                pred_wh = out["pred_wh"].float().cpu().numpy()  # (B, P, 2) normalized
+            pts, pvalid = batch["points"], batch["points_valid"]
+            for i, m in enumerate(batch["meta"]):
+                if not batch["batch_valid"][i]:
+                    continue
+                w, h = m["orig_size"]
+                img_id = m.get("image_id", len(images) + 1)
+                images.append({"id": img_id, "file_name": m.get("image_name", f"{img_id}.jpg"),
+                               "height": int(h), "width": int(w)})
+                for j in np.nonzero(pvalid[i])[0]:
+                    cx, cy = pts[i, j] * (w, h)
+                    bw, bh = pred_wh[i, j] * (w, h)
+                    annotations.append({
+                        "id": ann_id, "image_id": img_id, "area": int(bw * bh),
+                        "bbox": [int(cx), int(cy), int(bw), int(bh)],
+                        "category_id": 1, "iscrowd": 0,
+                    })
+                    ann_id += 1
+    finally:
+        batcher.close()
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     write_coco(out_path, images, annotations, box_format="cxcywh")
     if also_xywh_path:
