@@ -18,16 +18,19 @@ Phases, each printed as one JSON line:
             B=32 (serving) and in bfloat16 at B=8 (the train step); RCDA v3
             and rank-1 in bfloat16 and float32 at the stage-1 shapes (B=8,
             24x42, L=1008 encoder with a padded image and L=700 decoder) and
-            at B=32 37x37 (L=1369, 576); MHA in bfloat16 at B=8 over the
-            pseudo-label point tiers S=700 and S=5600, one row fully masked;
-            max error and its tolerance;
+            at B=32 37x37 (L=1369, 576); RCDA v3 bfloat16 at B=32 over the
+            learned prior's L=900 decoder queries; MHA in bfloat16 at
+            S=900 (B=32 and 8) and at B=8 over the pseudo-label point tiers
+            S=700 and S=5600, one row fully masked; max error and its
+            tolerance;
             the auction with tolerance 0 (assignments, rounds and bids
             identical) on the matcher's shapes: 8x576x700 transposed on
             random, DETR-shaped and degenerate costs (the DETR-shaped one
             also on clusters of 4, 8 and 16, each timed), 16x576x700 with a
             sparse image in each half (more clusters than the card holds at
             once), 576x128 (targets bid), 2x576x5600 (rows streamed),
-            2x576x5601 (streamed as scalar columns), integer ties,
+            2x576x5601 (streamed as scalar columns), the 900-query shapes
+            8x700x900 and 8x128x900 (targets bid) and 2x900x5600, integer ties,
             eps-scaling on 128x128, an iteration cap that leaves -1s; each
             with its cluster plan, and per timed case the microseconds a
             round (kernel_ms over the largest image's rounds); kernel /
@@ -88,6 +91,17 @@ Phases, each printed as one JSON line:
             per image of epoch 0 and how many hit the cap. JSONs land in
             --out (the checkpoint's meta and latest.json, not its ~0.5 GB
             payload).
+  defaults  the JAX CLI's default model options (ResNet-50-DC5, 6+6 layers,
+            the learned prior of 300 x 3 = 900 queries): float32 card-vs-CPU
+            parity at B=2 (one padded 592x592 image) under the learned and
+            the sampled (300 points) prior, the auxiliary outputs included;
+            a bfloat16 Predictor serves 3 batches of 32 at 592x592 (12 RCDA
+            and 6 MHA launches a forward) and the B=32 forward is timed; 6
+            bfloat16 Trainer steps at B=8 with aux_loss and dropout 0.1 (12
+            RCDA, 6 MHA and 6 auction launches a step: one matching a
+            decoder layer, each its own launch), then 3 under the sampled
+            prior (12/6/1); finite losses, every trainable tensor moved,
+            step and matcher times;
   cli       the port's command line at full width in bfloat16 on a
             synthetic FSCD-147 tree of the engine's shape without pseudo
             labels: stage-1 train (6 steps, rank-1), --generate_pseudo_label
@@ -96,11 +110,13 @@ Phases, each printed as one JSON line:
             (resumed at epoch 2 at the saved optimizer step), --eval,
             --infer, --evaluate_predictions as a `python -m` subprocess (its
             counting metrics equal metrics.json's), stage-1 --test (rank-1),
-            and cli/bench.py's train, match, e2e and flops modes; per mode
+            a bare --stage 2 (the learned prior) for 3 steps and --infer
+            from its checkpoint, and cli/bench.py's train, match, e2e and
+            flops modes; per mode
             the wall seconds, img/s, forwards and launches (12 RCDA or
             rank-1 and 6 MHA a forward, 1 auction a stage-2 train or eval
             step), the files written, peak memory and no worker process
-            left; the modes' output in --out/cli/.
+            left; the modes' output in --out/cli/;
 Then the kernels line with each path's launch counts (its "launches": the
 cli phase's pipeline modes), the card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
@@ -113,6 +129,16 @@ non-zero; without a CUDA device nothing is printed on stdout.
                                                  # engine phase
     python3 chip_smoke.py --only cli             # build, then only the
                                                  # cli phase
+    python3 chip_smoke.py --only defaults        # likewise, the defaults phase
+    python3 chip_smoke.py --only convergence     # the learning-loop check
+
+The ``convergence`` phase runs only when asked for:
+tests/torch_convergence_run.py in bfloat16, the JAX package's learning-loop
+recipe (synthetic FSCD-147, 300 stage-1 steps, pseudo-labels, 1500 stage-2
+steps), held to its held-out bounds (test AP50 > 0.5, MAE@0.5 < 1.0, train
+AP50 > 0.5); its log in --out/convergence.txt. The recipe misses those
+bounds in the JAX package too (PERF.md §6), so the whole run leaves it
+out.
 """
 
 from __future__ import annotations
@@ -131,6 +157,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("engine", "cli", "defaults", "convergence")  # runnable alone with --only
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -447,6 +474,14 @@ def auction_cases(auction_kernel, matching, rng):
         torch.ones((2, 128), dtype=torch.bool, device=dev),
         torch.from_numpy((span * 1e-3).astype(np.float32)).to(dev), 16 * 128 + 2048,
         scaling=True))
+    # 900 queries (the learned prior's 300 x 3): the 700 and 128 box tiers
+    # bid as targets; the 5600 tier is transposed, the queries bidding
+    from_cost("900x700 detr (targets bid)", cost_structures(rng, B, 900, 700)["detr"],
+              valid700, timed=True)
+    from_cost("900x128 detr (targets bid)", cost_structures(rng, B, 900, 128)["detr"],
+              valid128, timed=True)
+    from_cost("900x5600 detr, 3000 valid", cost_structures(rng, 2, 900, 5600)["detr"],
+              valid5600, timed=True)
     return cases
 
 
@@ -1214,7 +1249,8 @@ def cli_phase(smi, failures, out_dir):
     """The port's command line over a synthetic FSCD-147 tree: stage-1
     train (rank-1), pseudo-labels (v3), stage-2 train, its auto-resume,
     --eval, --infer, --evaluate_predictions (a python -m subprocess),
-    stage-1 --test (rank-1), and the bench modes. Each in-process mode runs
+    stage-1 --test (rank-1), a bare --stage 2 (the learned prior) trained
+    and inferred from, and the bench modes. Each in-process mode runs
     with the launch counters zeroed before and read after, against 12 RCDA
     (or rank-1) and 6 MHA launches a forward and one auction launch a
     stage-2 train or eval step."""
@@ -1421,12 +1457,31 @@ def cli_phase(smi, failures, out_dir):
                 and len(boxes) == 100 * len(s1_test["images"]) and np.isfinite(boxes).all()):
             failures.append(("cli stage-1 test", len(s1_test["images"]), len(boxes)))
 
+        # 7. the JAX CLI's bare --stage 2 (the learned prior, 300 x 3 = 900
+        # queries): three steps, then --infer from that checkpoint
+        s3 = os.path.join(work, "stage2_default")
+        t4 = cli_run("stage2_default_train", s3, ["--stage", "2", "--epochs", "1",
+                                                  "--max_steps", "3"], matching=True)
+        lines = read_log(s3)
+        if not (t4.cfg.spatial_prior == "learned" and t4.cfg.num_queries == 900
+                and t4.scheduler.last_epoch == 3 and len(lines) == 1):
+            failures.append(("cli bare stage 2", t4.cfg.spatial_prior, t4.cfg.num_queries,
+                             t4.scheduler.last_epoch, lines))
+        rec["stage2_default"] = {"queries": t4.cfg.num_queries, "log": lines}
+        del t4
+        m4 = cli_run("stage2_default_infer", s3, [
+            "--stage", "2", "--infer", "--checkpoint_path", os.path.join(s3, "checkpoints")],
+            images=len(split_images("val")) + len(split_images("test")))
+        if not all(np.isfinite(v) for m in m4.values() for v in m.values()):
+            failures.append(("cli bare stage 2 infer", m4))
+        rec["stage2_default"]["metrics"] = m4
+
         for src, name in ((s1, "log.txt"), (s2, "log.txt"), (s2, "metrics.json"),
                           (s2, "eval.json")):
             shutil.copy(os.path.join(src, name),
                         os.path.join(logs, f"{os.path.basename(src)}_{name}"))
 
-        # 7. the bench modes
+        # 8. the bench modes
         rec["bench"] = {}
         for mode, argv in CLI_BENCH.items():
             iters = 10  # the tool's default
@@ -1453,6 +1508,212 @@ def cli_phase(smi, failures, out_dir):
     rec["nvidia_smi"] = smi
     emit(rec)
     return {name: r["launches"] for name, r in rec["modes"].items() if "launches" in r}
+
+
+# the JAX CLI's bare --stage 2 (countdetr_tpu/cli/main.py:208-230): the
+# learned prior, 300 positions x 3 patterns = 900 queries
+DEFAULTS = dict(spatial_prior="learned", num_query_position=300, num_query_pattern=3)
+N_SAMPLED = 300  # --num_sample_points' default
+# the defaults phase: bucket side, serving batch, training batch
+DEFAULTS_SIZE, DEFAULTS_SERVE_BATCH, DEFAULTS_TRAIN_BATCH = 592, 32, 8
+
+
+def sampled_points(rng, B, S=N_SAMPLED):
+    return (rng.uniform(0.02, 0.98, (B, S, 2)).astype(np.float32), np.ones((B, S), bool))
+
+
+def defaults_phase(rng, smi, failures):
+    """The JAX CLI's default model options at full width: float32 card-vs-CPU
+    parity of the forward under the learned and sampled priors with the
+    auxiliary outputs; serving under the learned prior (3 batches of 32 at
+    592x592, bfloat16); 6 bfloat16 train steps with aux_loss and dropout 0.1
+    (one auction launch per decoder layer a step), then 3 under the sampled
+    prior with 300 points. Returns each path's launches."""
+    from countdetr_tpu_torch.config import TrainConfig, stage2_config
+    from countdetr_tpu_torch.models.anchor_detr import build_model
+    from countdetr_tpu_torch.ops import matching
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.serve import Predictor, pack_requests
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    t_phase = time.perf_counter()
+    S, SB, TB = DEFAULTS_SIZE, DEFAULTS_SERVE_BATCH, DEFAULTS_TRAIN_BATCH
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rec = {"phase": "defaults", "model": DEFAULTS, "queries": 900}
+    paths = {}
+
+    # 1. float32 parity, card (kernels) against CPU (plain), aux outputs too
+    padded = (S * 430 // 592, S * 511 // 592)
+    images, masks, rects, _ = pack_requests(make_packed_batch(rng, [(S, S), padded]), (S, S))
+    pts, pts_valid = sampled_points(rng, 2)
+    pts_valid[1, 250:] = False  # 50 padded points in image 1
+    rec["parity"] = {"batch": 2, "bucket": [S, S], "padded_image": list(padded),
+                     "dtype": "float32", "tol": PARITY_TOL}
+    for prior in ("learned", "sampled"):
+        cfg = stage2_config(**dict(DEFAULTS, spatial_prior=prior), aux_loss=True)
+        cpu_model = build_model(cfg, device="cpu", seed=0)
+        perturb_(cpu_model, 7)  # the zero-initialised box head must depend on the input
+        gpu_model = build_model(cfg, device="cuda", state_dict=cpu_model.state_dict())
+        arrays = (images, masks, rects) + ((pts, pts_valid) if prior == "sampled" else ())
+        with torch.inference_mode():
+            out_gpu = gpu_model(*(torch.from_numpy(a).cuda() for a in arrays))
+            out_cpu = cpu_model(*(torch.from_numpy(a) for a in arrays))
+        errs = {}
+        for key in ("pred_logits", "pred_boxes", "pred_vars"):
+            errs[key] = (out_gpu[key].cpu() - out_cpu[key]).abs().max().item()
+        for i, (ag, ac) in enumerate(zip(out_gpu["aux_outputs"], out_cpu["aux_outputs"])):
+            for key in ("pred_logits", "pred_boxes"):
+                errs[f"aux{i}_{key}"] = (ag[key].cpu() - ac[key]).abs().max().item()
+        finite = all(bool(torch.isfinite(v).all()) for k, v in out_gpu.items()
+                     if k != "aux_outputs")
+        queries = out_gpu["pred_logits"].shape[1]
+        rec["parity"][prior] = {"max_abs_err": errs, "finite": finite, "queries": queries,
+                                "aux_outputs": len(out_gpu["aux_outputs"])}
+        if not (max(errs.values()) <= PARITY_TOL and finite and queries == 900
+                and len(out_gpu["aux_outputs"]) == cfg.dec_layers - 1):
+            failures.append(("defaults parity", prior, rec["parity"][prior]))
+        del cpu_model, gpu_model, out_gpu
+
+    # 2. serving the learned prior: 3 batches of 32 at 592x592
+    pred = Predictor(stage2_config(**DEFAULTS, compute_dtype="bfloat16"), device="cuda",
+                     bucket=(S, S), seed=0)
+    batches = [make_packed_batch(rng, [(S, S)] * SB) for _ in range(3)]
+    pred.predict(batches[0])  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    reset_launches(*kernels)
+    predict_ms, counts = [], []
+    for reqs in batches:
+        t = time.perf_counter()
+        results = pred.predict(reqs)
+        predict_ms.append((time.perf_counter() - t) * 1e3)
+        counts.append([r["count"] for r in results])
+        if not all(np.isfinite(r["scores"]).all() and np.isfinite(r["boxes_cxcywh_px"]).all()
+                   for r in results):
+            failures.append(("defaults serving", "non-finite output"))
+    paths["serving"] = launch_counts(*kernels)
+    want = {"rcda": 12 * 3, "rcda_rank1": 0, "mha": 6 * 3, "auction": 0}
+    if paths["serving"] != want:
+        failures.append(("defaults serving launches", paths["serving"], want))
+    images, masks, rects, _ = pack_requests(batches[0], (S, S))
+    dev_in = [torch.from_numpy(a).cuda() for a in (images, masks, rects)]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: pred.model(*dev_in), 5, warmup=1)
+        prof = profile_calls(lambda: pred.model(*dev_in), 2)
+    rec["serving"] = {"dtype": "bfloat16", "batches": 3, "batch_size": SB, "bucket": [S, S],
+                      "predict_ms": predict_ms, "counts_first_batch": counts[0][:8],
+                      "launches": paths["serving"], "launches_expected": want,
+                      "forward_ms": fwd_ms, "img_per_s": SB * 1e3 / fwd_ms,
+                      "profile": prof}
+    del pred, dev_in
+
+    # 3. training: aux_loss and dropout under the learned prior, then the
+    # sampled prior; matcher time from CUDA events around each call
+    match_ev = []
+    solve = matching.batched_match
+
+    def timed_match(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = solve(*a, **k)
+        e1.record()
+        match_ev.append((e0, e1))
+        return out
+
+    train_batches = {700: train_batch(rng, TB, S, 700, n_valid_first=40),
+                     128: train_batch(rng, TB, S, 128)}
+    runs = {"train_learned": (dict(DEFAULTS, aux_loss=True, dropout=0.1), 6),
+            "train_sampled": (dict(DEFAULTS, spatial_prior="sampled"), 3)}
+    for name, (kw, n_steps) in runs.items():
+        cfg = stage2_config(compute_dtype="bfloat16", **kw)
+        trainer = Trainer(cfg, TrainConfig(), device="cuda", seed=0)
+        before = {k: v.detach().clone() for k, v in trainer.model.named_parameters()
+                  if v.requires_grad}
+        plan = [(700, 128)[i % 2] for i in range(n_steps)]
+        if cfg.spatial_prior == "sampled":
+            for b in train_batches.values():
+                b["sampled_points"], b["sampled_points_valid"] = sampled_points(rng, TB)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernels)
+        del match_ev[:]
+        step_ms, metrics = [], []
+        matching.batched_match = timed_match
+        try:
+            for T in plan:
+                t = time.perf_counter()
+                m = trainer.step(train_batches[T])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                metrics.append({k: v.item() for k, v in m.items()})
+        finally:
+            matching.batched_match = solve
+        paths[name] = launch_counts(*kernels)
+        per_step = cfg.dec_layers if cfg.aux_loss else 1  # one matching per output
+        want = {"rcda": 12 * n_steps, "rcda_rank1": 0, "mha": 6 * n_steps,
+                "auction": per_step * n_steps}
+        if paths[name] != want:
+            failures.append((f"defaults {name} launches", paths[name], want))
+        if not all(np.isfinite(v) for m in metrics for v in m.values()):
+            failures.append((f"defaults {name}", "non-finite metric", metrics))
+        if int(trainer.bad_steps.item()):
+            failures.append((f"defaults {name}", "bad_steps", int(trainer.bad_steps.item())))
+        not_moved = [k for k, p in trainer.model.named_parameters()
+                     if p.requires_grad and torch.equal(before[k], p.detach())]
+        if not_moved:
+            failures.append((f"defaults {name}", "not moved", not_moved))
+        match_ms = [a.elapsed_time(z) for a, z in match_ev]
+        steady = step_ms[1:]
+        rec[name] = {
+            "dtype": "bfloat16", "batch": TB, "bucket": [S, S], "aux_loss": cfg.aux_loss,
+            "dropout": cfg.dropout, "targets_per_step": plan, "step_ms": step_ms,
+            "step_ms_mean_after_first": float(np.mean(steady)),
+            "train_img_per_s": TB * 1e3 / float(np.mean(steady)),
+            "match_ms": match_ms, "match_calls_per_step": per_step,
+            "match_ms_per_step": [sum(match_ms[i * per_step:(i + 1) * per_step])
+                                  for i in range(n_steps)],
+            "aux_parts": sorted(k for k in metrics[0] if k[-2:-1] == "_" and k[-1].isdigit()),
+            "losses": [m["loss"] for m in metrics], "launches": paths[name],
+            "launches_expected": want, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "not_moved": not_moved,
+        }
+        if name == "train_learned":
+            rec[name]["profile"] = profile_calls(lambda: trainer.step(train_batches[700]), 1,
+                                                 top=15)
+        del trainer
+    for b in train_batches.values():
+        b.pop("sampled_points", None), b.pop("sampled_points_valid", None)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return paths
+
+
+def convergence_phase(smi, failures, out_dir):
+    """tests/torch_convergence_run.py on the card in bfloat16: the JAX
+    recipe's two stages on synthetic data, held to the JAX held-out bounds."""
+    import contextlib
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from synth import make_fscd147
+    from torch_convergence_run import BOUNDS, TREE, run, within_bounds
+
+    t = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="convergence_")
+    log = os.path.join(out_dir, "convergence.txt")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        root = make_fscd147(os.path.join(work, "data"), **TREE)
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            summary = run(root, os.path.join(work, "out"), steps1=300, steps2=1500, lr2=1e-3,
+                          device="cuda", dtype="bfloat16")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok = within_bounds(summary)
+    if not ok:
+        failures.append(("convergence below the JAX bounds", summary))
+    emit({"phase": "convergence", "dtype": "bfloat16", "steps": [300, 1500], "lr2": 1e-3,
+          "bounds": BOUNDS, "within_bounds": ok, "summary": summary,
+          "phase_wall_s": time.perf_counter() - t, "nvidia_smi": smi})
 
 
 def make_packed_batch(rng, sizes):
@@ -1520,12 +1781,12 @@ def ptxas_report(build_dir, names):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+",
-                    choices=("rcda", "rank1", "mha", "auction", "engine", "cli"),
+    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction") + PHASES,
                     help="build, then check only these kernels (cases and edge cases), or run "
-                         "only the engine and/or cli phases, and stop")
+                         "only these of the engine, cli, defaults and convergence phases, and "
+                         "stop")
     ap.add_argument("--out", default=os.path.join(REPO, "chip_smoke_out"),
-                    help="directory for the engine and cli phases' outputs")
+                    help="directory for the engine, cli and convergence phases' outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1557,21 +1818,26 @@ def main(argv=None) -> int:
           # the auction's plan, shared memory a block and clusters resident at
           # once on the matcher's shapes (P x O)
           "auction_plan": {f"{P}x{O}": auction_plan(auction_kernel, P, O)
-                           for P, O in ((576, 700), (128, 576), (576, 5600))}})
+                           for P, O in ((576, 700), (128, 576), (576, 5600), (700, 900),
+                                        (128, 900), (900, 5600))}})
 
     # 2. each kernel against its plain version, at the main path's shapes
     g = torch.Generator(device="cuda").manual_seed(0)
-    if args.only and set(args.only) <= {"engine", "cli"}:
+    if args.only and set(args.only) <= set(PHASES):
         failures = []
         if "engine" in args.only:
             engine_phase(smi, failures, args.out)
         if "cli" in args.only:
             cli_phase(smi, failures, args.out)
+        if "defaults" in args.only:
+            defaults_phase(np.random.default_rng(8), smi, failures)
+        if "convergence" in args.only:
+            convergence_phase(smi, failures, args.out)
         if failures:
             print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
         return 1 if failures else 0
     if args.only:
-        return only_kernels([k for k in args.only if k not in ("engine", "cli")], g, rcda_kernel,
+        return only_kernels([k for k in args.only if k not in PHASES], g, rcda_kernel,
                             mha_kernel, auction_kernel, matching)
     # B=32: the serving throughput batch; B=8 bf16: the train step's
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
@@ -1592,6 +1858,13 @@ def main(argv=None) -> int:
     # the pseudo-label point tiers: 700 and 5600
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=8, L=L) for L in (700, 5600)]
     edges = edge_cases(rcda_kernel, mha_kernel, g)
+    # the learned prior's 900 queries (the decoder's RCDA and MHA at serving
+    # B=32, MHA at training B=8), drawn after the cases above. The cases above
+    # must keep their draw position: the bf16 edge tolerance is absolute and
+    # one bf16 ulp exceeds it at outputs >= 2 (ROADMAP Queue 3), so new
+    # inputs for them can trip it. Add new cases here, after them.
+    rcda_cases += [rcda_case(rcda_kernel, g, torch.bfloat16, 900)]
+    mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
     torch.cuda.synchronize()
     failures = [("edge", c) for c in edges if not c["max_abs_err"] <= c["tol"]]
@@ -1684,11 +1957,18 @@ def main(argv=None) -> int:
     stage1_launches = stage1_train_phase(rng, smi, failures)
     pseudo_launches = pseudo_label_phase(rng, smi, failures)
 
-    # 8. the training and evaluation engine over a synthetic FSCD-147 tree
+    # 8. the JAX CLI's default model options: the learned and sampled
+    # priors, aux losses, dropout
+    defaults_launches = defaults_phase(rng, smi, failures)
+    defaults_main = {k: sum(c[k] for c in defaults_launches.values())
+                     for k in ("rcda", "mha", "auction")}
+    failures += [("defaults path launched no", k) for k, n in defaults_main.items() if n == 0]
+
+    # 9. the training and evaluation engine over a synthetic FSCD-147 tree
     engine_launches = engine_phase(smi, failures, args.out)
 
-    # 9. the command line over a synthetic FSCD-147 tree: this slice's main
-    # path, each mode read with the counters zeroed just before it
+    # 10. the command line over a synthetic FSCD-147 tree (a bare --stage 2
+    # among its modes), each mode read with the counters zeroed just before it
     cli_launches = cli_phase(smi, failures, args.out)
     cli_main = {k: sum(c[k] for name, c in cli_launches.items() if not name.startswith("bench"))
                 for k in ("rcda", "rcda_rank1", "mha", "auction")}
@@ -1700,6 +1980,7 @@ def main(argv=None) -> int:
                     for k in pseudo_launches["v3"]}
     paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
              "pseudo_label": pseudo_total}
+    paths.update({f"defaults_{name}": counts_ for name, counts_ in defaults_launches.items()})
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
     paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})
 
@@ -1775,6 +2056,14 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
     if "auction" in kinds:
         rec["auction"] = auction_cases(auction_kernel, matching, np.random.default_rng(1))
     rec["edge"] = edge_cases(rcda_kernel, mha_kernel, g, kinds)
+    # the learned prior's 900 queries, drawn after the cases above, which
+    # keep their draw position (see main; ROADMAP Queue 3)
+    if "rcda" in kinds:
+        rec["rcda"] += [rcda_case(rcda_kernel, g, torch.bfloat16, 900)]
+        cases += rec["rcda"][-1:]
+    if "mha" in kinds:
+        rec["mha"] += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
+        cases += rec["mha"][-2:]
     emit(rec)
     bad = [c for c in cases + rec["edge"] if not c["max_abs_err"] <= c["tol"]]
     bad += [c for c in rec.get("mha", []) if not c["dead_row_uniform_err"] <= c["tol"]]

@@ -23,6 +23,8 @@ train: stage 1 or 2 at --size/--batch/--queries/--max_boxes on random
 e2e: stage 2 on a synthetic FSCD-147 tree (data/synthetic.py): FSC147Pseudo,
   the shuffled Batcher and its worker pool into ``Trainer.step``: a warm
   epoch, a data-only epoch and a timed epoch (host clock, ending in a sync).
+  ``data_fraction_of_step`` keeps 3 significant digits (the JAX tool rounds
+  it to 3 decimals, which reads 0.0 for a ratio below 0.0005).
 match: the matcher alone on random, DETR-shaped and degenerate costs at
   (batch, queries, targets): the CUDA auction (CUDA events) against scipy's
   exact LAP on the host; ``--plain_auction`` adds the plain PyTorch auction
@@ -50,6 +52,11 @@ EXEMPLARS = [[0.1, 0.1, 0.3, 0.3], [0.4, 0.4, 0.6, 0.6], [0.2, 0.5, 0.4, 0.7]]
 
 def _device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def sig3(x: float) -> float:
+    """x to 3 significant digits: a positive ratio stays positive."""
+    return float(f"{x:.3g}")
 
 
 def _timed_ms(fn, iters: int, dev: torch.device) -> float:
@@ -202,7 +209,7 @@ def e2e_throughput(size=592, batch=8, dtype="bfloat16", num_workers=0, decoded_c
            "decoded_cache": (decoded_cache_dir and "disk") or bool(decoded_cache),
            "img_per_s_e2e": round(n_e2e / dt_e2e, 2),
            "img_per_s_data_only": round(n_data / dt_data, 2),
-           "data_fraction_of_step": round(dt_data / dt_e2e if dt_e2e > 0 else float("nan"), 3),
+           "data_fraction_of_step": sig3(dt_data / dt_e2e if dt_e2e > 0 else float("nan")),
            "device": _device_name(dev)}
     print(json.dumps(out))
     return out

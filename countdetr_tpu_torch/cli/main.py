@@ -2,7 +2,7 @@
 for the whole two-stage pipeline, with the JAX CLI's flags.
 
   stage 1 train   : --stage 1 --spatial_prior defined --num_query_pattern 1
-                    (reference weakly_supervise_fscd_147.sh)
+                    --num_query_position 3 (reference weakly_supervise_fscd_147.sh)
   stage 1 pseudo  : the same + --generate_pseudo_label (train/val/test dots)
   stage 1 test    : the same + --test
   stage 2 train   : --stage 2 --spatial_prior grid --num_query_position 600
@@ -15,14 +15,15 @@ for the whole two-stage pipeline, with the JAX CLI's flags.
         --num_query_position 600 --num_query_pattern 1 --data_path D \\
         --output_dir O --compute_dtype bfloat16
 
-Runs on ``--device`` (default cuda; a missing card raises, nothing falls
-back). The model's RCDA core is COUNTDETR_PALLAS_VARIANT ("v3", the
-default, or "rank1"), the switch the JAX package reads. Flag values the
-port's model does not have yet (the learned and sampled priors, --aux_loss,
---dropout > 0, --masks, --attention_type nn.MultiheadAttention,
---num_feature_levels > 1) exit with the ROADMAP.md item that adds them; the
-JAX parser's default prior is "learned", so stage 2 needs --spatial_prior
-grid and stage 1 --spatial_prior defined.
+A bare ``--stage 2`` runs the JAX CLI's default model: the learned prior
+of 300 positions x 3 patterns (900 queries). Every prior runs in either
+stage; the sampled prior reads --num_sample_points density-drawn points a
+FSCD-147 image. Runs on ``--device`` (default cuda; a missing card raises,
+nothing falls back). The model's RCDA core is COUNTDETR_PALLAS_VARIANT
+("v3", the default, or "rank1"), the switch the JAX package reads. Flag
+values the port's model does not have yet (--masks, --attention_type
+nn.MultiheadAttention, --num_feature_levels > 1) exit with the ROADMAP.md
+item that adds them.
 """
 
 from __future__ import annotations
@@ -82,9 +83,7 @@ def get_args_parser():
     p.add_argument("--num_query_position", default=300, type=int)
     p.add_argument("--num_query_pattern", default=3, type=int)
     p.add_argument("--spatial_prior", default="learned",
-                   choices=["learned", "grid", "defined", "sampled"],
-                   help="the port runs 'defined' in stage 1 and 'grid' in stage 2; the "
-                   "default 'learned' and 'sampled' exit (not in the port's model yet)")
+                   choices=["learned", "grid", "defined", "sampled"])
     p.add_argument("--attention_type", default="RCDA", choices=["RCDA", "nn.MultiheadAttention"])
     p.add_argument("--stage", default=1, type=int, choices=[1, 2])
     p.add_argument("--masks", action="store_true",
@@ -202,6 +201,7 @@ def config_from_args(args) -> Config:
         enc_layers=args.enc_layers,
         dec_layers=args.dec_layers,
         dim_feedforward=args.dim_feedforward,
+        dropout=args.dropout,
         attention_type="RCDA" if args.attention_type == "RCDA" else "MHA",
         num_query_position=args.num_query_position,
         num_query_pattern=args.num_query_pattern,
@@ -270,17 +270,6 @@ def refuse_unsupported(args, cfg: Config):
     naming the ROADMAP.md item that adds it."""
     m = cfg.model
     missing = []
-    if m.spatial_prior in ("learned", "sampled"):
-        missing.append((f"--spatial_prior {m.spatial_prior}",
-                        f"the {m.spatial_prior} prior (stage 1 runs --spatial_prior defined, "
-                        f"stage 2 --spatial_prior grid)"))
-    elif m.spatial_prior != ("defined" if m.stage == 1 else "grid"):
-        missing.append((f"--stage {m.stage} --spatial_prior {m.spatial_prior}",
-                        "a prior other than the stage's own (stage 1: defined, stage 2: grid)"))
-    if m.aux_loss:
-        missing.append(("--aux_loss", "auxiliary per-decoder-layer losses"))
-    if args.dropout > 0:
-        missing.append((f"--dropout {args.dropout}", "dropout > 0"))
     if m.masks:
         missing.append(("--masks", "the mask head"))
     if m.attention_type != "RCDA":
@@ -327,12 +316,13 @@ def _build_dataset(name: str, split: str, cfg: Config, pseudo: bool = False):
     if cfg.data.dataset == "fscd_147":
         from countdetr_tpu_torch.data import fscd147 as D
 
+        nsp = cfg.data.num_sampled_points  # the sampled prior's points
         if pseudo:
-            return D.FSC147Pseudo(dp, split, sf, cache_mode=cm)
+            return D.FSC147Pseudo(dp, split, sf, num_sampled_points=nsp, cache_mode=cm)
         if name.endswith("_point"):
             return D.FSCD147Points(dp, split, sf, cache_mode=cm)
         if name.endswith("_test"):
-            return D.FSCD147Eval(dp, split, sf, cache_mode=cm)
+            return D.FSCD147Eval(dp, split, sf, num_sampled_points=nsp, cache_mode=cm)
         return D.FSCD147Exemplars(dp, split, sf, cache_mode=cm)
     from countdetr_tpu_torch.data import fscd_lvis as D
 

@@ -3,8 +3,7 @@
 ``stage1_config`` and ``stage2_config`` (countdetr_tpu/config.py).
 
 Left out: the TPU-only knobs (use_pallas_rcda, param_dtype, remat, the
-COUNTDETR_* environment switches other than the RCDA variant), the dropout
-(0 in every published run; the CLI refuses other values) and
+COUNTDETR_* environment switches other than the RCDA variant) and
 ``TrainConfig.mesh_shape``/``mesh_axes``: the port runs one process on one
 card (core/mesh.py), and data parallelism is queued in ROADMAP.md."""
 
@@ -33,6 +32,7 @@ class ModelConfig:
     enc_layers: int = 6
     dec_layers: int = 6
     dim_feedforward: int = 1024
+    dropout: float = 0.0
     activation: str = "relu"
     attention_type: str = "RCDA"
 
@@ -97,7 +97,9 @@ class DataConfig:
     # space-to-depth pack batches on the host (B, H/2, W/2, 12); the CLI
     # turns it on for the raw uint8 pipe
     pack_s2d: bool = False
-    num_sampled_points: int = 0  # the sampled prior's points (not in the port's model)
+    # points the FSCD-147 readers draw from the density map for the sampled
+    # prior (0: none; the CLI sets --num_sample_points under that prior)
+    num_sampled_points: int = 0
     max_points: int = 700
     max_boxes: int = 700
     max_exemplars: int = 3

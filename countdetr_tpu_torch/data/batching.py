@@ -5,8 +5,7 @@ boxes to capacities with validity masks, group samples into batches
 worker pool, data/loader.py) and prefetch them on a thread. Pure numpy.
 
 Left out against the JAX package, for data parallelism: the multi-process
-global schedule (``process_index``/``process_count``); also the
-``sampled_points`` of the sampled prior.
+global schedule (``process_index``/``process_count``).
 """
 
 from __future__ import annotations
@@ -107,6 +106,8 @@ class Batcher:
       whs (k, 2) -> whs (B, P, 2), aligned with points
       boxes (k, 4) -> boxes (B, T, 4) + boxes_valid
       exemplar_boxes (K, 4) -> (B, K, 4)
+      sampled_points (S, 2), the sampled prior's fixed count a sample ->
+        sampled_points (B, S, 2) + sampled_points_valid (the real rows)
     Everything else goes into 'meta' (one dict per sample), which also
     records the untruncated 'n_points'/'n_boxes' of its sample. A partial
     batch is padded by repeating its last sample, 'batch_valid' marking the
@@ -185,7 +186,7 @@ class Batcher:
                   real: int) -> Dict:
         samples = samples + [samples[-1]] * (self.bs - len(samples))
         batch: Dict = {"meta": [], "bucket": bucket}
-        images, masks, pts, ptsv, whs, boxes, boxesv, rects = ([] for _ in range(8))
+        images, masks, pts, ptsv, whs, boxes, boxesv, rects, sampled = ([] for _ in range(9))
         for s in samples:
             img, m = pad_to_bucket(s["image"], bucket)
             images.append(img)
@@ -209,8 +210,11 @@ class Batcher:
                 boxesv.append(v)
             if "exemplar_boxes" in s:
                 rects.append(np.asarray(s["exemplar_boxes"], dtype=np.float32))
+            if "sampled_points" in s:
+                sampled.append(np.asarray(s["sampled_points"], np.float32).reshape(-1, 2))
             meta = {k: v for k, v in s.items()
-                    if k not in ("image", "points", "whs", "boxes", "exemplar_boxes")}
+                    if k not in ("image", "points", "whs", "boxes", "exemplar_boxes",
+                                 "sampled_points")}
             meta["n_points"] = n_points
             meta["n_boxes"] = n_boxes
             batch["meta"].append(meta)
@@ -231,6 +235,10 @@ class Batcher:
             batch["boxes_valid"] = np.stack(boxesv) & bv[:, None]
         if rects:
             batch["exemplar_boxes"] = np.stack(rects)
+        if sampled:
+            batch["sampled_points"] = np.stack(sampled)
+            batch["sampled_points_valid"] = np.ones(batch["sampled_points"].shape[:2],
+                                                    dtype=bool) & bv[:, None]
         return batch
 
     def _meta(self, i: int) -> Tuple[Tuple[int, int], int, int]:

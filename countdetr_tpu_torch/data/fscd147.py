@@ -16,9 +16,13 @@ exemplar rectangles come from corners 0 and 2 of box_examples_coordinates.
 normalized float32 images; False gives the resized raw uint8 array, which
 the port's model normalizes on the device (a 4x smaller copy).
 
-Pillow is imported where an image is opened, not with the module. Left out
-against the JAX package: the sampled prior's per-sample ``sampled_points``
-(``sample_points_from_density`` is here).
+With ``num_sampled_points`` > 0, FSCD147Eval and FSC147Pseudo add the
+sampled prior's ``sampled_points``: drawn in proportion to the image's
+density map ({data_path}/gt_density_map_adaptive_384_VarV2/<name>.npy), or
+to a 64x64 map of its dots where there is none, from a generator seeded by
+(sample_seed, index), so the JAX package's readers draw the same points.
+
+Pillow is imported where an image is opened, not with the module.
 """
 
 from __future__ import annotations
@@ -166,15 +170,53 @@ class FSCD147Points(FSCD147Base):
         }
 
 
-class FSCD147Eval(FSCD147Base):
+DENSITY_DIR = "gt_density_map_adaptive_384_VarV2"
+
+
+def _density_sampled_points(name: str, points_norm: np.ndarray, density_dir: str, n: int,
+                            rng) -> np.ndarray:
+    """The sampled prior's points (reference get_sample_points,
+    data/fsc147.py:259-284): from the image's density .npy where the tree
+    has one, else from a 64x64 map of its dots."""
+    path = os.path.join(density_dir, os.path.splitext(name)[0] + ".npy")
+    if os.path.exists(path):
+        return sample_points_from_density(np.load(path), n, rng)
+    grid = np.zeros((64, 64), np.float32)
+    for x, y in np.asarray(points_norm).reshape(-1, 2):
+        grid[min(int(y * 64), 63), min(int(x * 64), 63)] += 1.0
+    return sample_points_from_density(grid, n, rng)
+
+
+class _SampledPoints:
+    """The sampled prior's points of a reader (0 points: none)."""
+
+    def _init_sampled(self, num_sampled_points: int, density_dir: Optional[str],
+                      sample_seed: int):
+        self.num_sampled_points = num_sampled_points
+        self.density_dir = density_dir or os.path.join(self.data_path, DENSITY_DIR)
+        self.sample_seed = sample_seed
+
+    def _add_sampled(self, out: Dict, idx: int, name: str, points_norm: np.ndarray) -> Dict:
+        if self.num_sampled_points:
+            rng = np.random.default_rng((self.sample_seed, idx))
+            out["sampled_points"] = _density_sampled_points(
+                name, points_norm, self.density_dir, self.num_sampled_points, rng)
+        return out
+
+
+class FSCD147Eval(FSCD147Base, _SampledPoints):
     """Val/test: COCO GT boxes (cxcywh, normalized), exemplar rectangles
     (xyxy, normalized) and dots (reference FSCD147_Test /
-    FSC147_Dataset_Val/Test, data/fsc147.py:105-351)."""
+    FSC147_Dataset_Val/Test, data/fsc147.py:105-351); ``sampled_points``
+    with ``num_sampled_points``."""
 
-    def __init__(self, data_path: str, split: str, scale_factor: int = 32, cache_mode=False):
+    def __init__(self, data_path: str, split: str, scale_factor: int = 32,
+                 num_sampled_points: int = 0, density_dir: Optional[str] = None,
+                 sample_seed: int = 0, cache_mode=False):
         super().__init__(data_path, split, scale_factor, cache_mode)
         self.gt = CocoJson(os.path.join(data_path, f"instances_{split}.json"), "xywh")
         self.name2id = self.gt.name_to_id()
+        self._init_sampled(num_sampled_points, density_dir, sample_seed)
 
     def num_boxes(self, idx) -> int:
         return len(self.gt.anns_for(self.name2id[self.data_split[idx]]))
@@ -189,25 +231,29 @@ class FSCD147Eval(FSCD147Base):
                         dtype=np.float32).reshape(-1, 4)
         boxes = np.concatenate([xywh[:, :2] + xywh[:, 2:] / 2.0, xywh[:, 2:]], axis=1) / res4
         rects = _exemplar_rects(anno["box_examples_coordinates"]) / res4
-        return {
+        points = np.array(anno["points"], dtype=np.float32) / np.array([w, h], np.float32)
+        return self._add_sampled({
             "image": image,
             "image_name": name,
             "image_id": img_id,
             "boxes": boxes.astype(np.float32),
             "exemplar_boxes": rects.astype(np.float32),
-            "points": np.array(anno["points"], dtype=np.float32) / np.array([w, h], np.float32),
+            "points": points,
             "orig_size": (w, h),
-        }
+        }, idx, name, points)
 
 
-class FSC147Pseudo(FSCD147Base):
+class FSC147Pseudo(FSCD147Base, _SampledPoints):
     """Stage-2 training: stage-1 pseudo boxes (cxcywh pixels in a COCO
     "bbox") and exemplar rectangles (reference FSC147Dataset,
-    data/fsc147.py:12-102). Indexed by the pseudo file's image ids."""
+    data/fsc147.py:12-102); ``sampled_points`` with ``num_sampled_points``.
+    Indexed by the pseudo file's image ids."""
 
     def __init__(self, data_path: str, split: str, scale_factor: int = 32,
-                 pseudo_file: Optional[str] = None, cache_mode=False):
+                 pseudo_file: Optional[str] = None, num_sampled_points: int = 0,
+                 density_dir: Optional[str] = None, sample_seed: int = 0, cache_mode=False):
         super().__init__(data_path, split, scale_factor, cache_mode)
+        self._init_sampled(num_sampled_points, density_dir, sample_seed)
         pseudo_file = pseudo_file or os.path.join(data_path, "annotations",
                                                   f"pseudo_bbox_{split}.json")
         self.pseudo = CocoJson(pseudo_file, "cxcywh")
@@ -232,8 +278,9 @@ class FSC147Pseudo(FSCD147Base):
         res4 = np.array([w, h, w, h], dtype=np.float32)
         boxes = np.array([a["bbox"] for a in self.pseudo.anns_for(img_id)],
                          dtype=np.float32).reshape(-1, 4) / res4
-        rects = _exemplar_rects(self.annotations[name]["box_examples_coordinates"]) / res4
-        return {
+        anno = self.annotations[name]
+        rects = _exemplar_rects(anno["box_examples_coordinates"]) / res4
+        out = {
             "image": image,
             "image_name": name,
             "image_id": img_id,
@@ -241,6 +288,10 @@ class FSC147Pseudo(FSCD147Base):
             "exemplar_boxes": rects.astype(np.float32),
             "orig_size": (w, h),
         }
+        if not self.num_sampled_points:
+            return out
+        points = np.array(anno["points"], np.float32) / np.array([w, h], np.float32)
+        return self._add_sampled(out, idx, name, points)
 
 
 def sample_points_from_density(density_map: np.ndarray, num_samples: int = 300,

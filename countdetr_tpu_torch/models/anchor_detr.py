@@ -3,16 +3,21 @@ reference 1st-stage models/anchor_detr.py:33-113, 2nd-stage
 models/anchor_detr.py:34-140, backbone.py:116-145).
 
 Stage 1, the pseudo-GT regressor: backbone C5 -> 1x1 input_proj + masked
-GroupNorm(32) -> transformer with the defined prior (the given points are
-the reference points; invalid ones are masked in the decoder's
-self-attention). Outputs {pred_logits, pred_points, pred_wh}, float32.
+GroupNorm(32) -> transformer (stage1_config: the defined prior) ->
+{pred_logits, pred_points, pred_wh}, float32.
 
 Stage 2, the detector: backbone C5 -> exemplar feature aggregation (the
 feature at each exemplar box's centre, averaged, modulates the map
 channel-wise; concat -> 4096 ch) -> 1x1 aggr_input_proj + masked
-GroupNorm(32) -> transformer with the grid prior and the Laplace variance
-head. Outputs {pred_logits, pred_boxes, pred_vars, reference_points},
-float32.
+GroupNorm(32) -> transformer with the Laplace variance head (stage2_config:
+the grid prior) -> {pred_logits, pred_boxes, pred_vars, reference_points},
+float32, and with ``aux_loss`` the earlier decoder layers' ``aux_outputs``.
+
+The spatial prior gives the reference points, in either stage
+(countdetr_tpu/models/anchor_detr.py:220-238): "learned" a parameter of
+num_query_position points, "grid" a fixed grid, "defined" and "sampled" the
+points passed with the batch (invalid ones are masked in the decoder's
+self-attention).
 
 Module names follow the reference torch model (``backbone.body.*``,
 ``input_proj.0.{0,1}.*`` / ``aggr_input_proj.0.{0,1}.*``,
@@ -124,38 +129,46 @@ def exemplar_aggregate(feat: torch.Tensor, rects: torch.Tensor) -> torch.Tensor:
     return torch.cat([feat, feat * vec[:, None, None, :]], dim=-1)
 
 
+PRIORS = ("learned", "grid", "defined", "sampled")
+
+
 class CountingDetr(nn.Module):
     """The counting detector of ``cfg.stage``.
 
-    forward(images, pad_mask, *prior):
+    forward(images, pad_mask, *prior, generator=None, aux_outputs=None):
       images (B, H, W, 3) or s2d-packed (B, H/2, W/2, 12), raw uint8 or
         normalized float;
       pad_mask (B, H, W) bool, True on padding;
       prior: stage 1 (points (B, P, 2) normalized cx, cy, points_valid
-        (B, P) bool); stage 2 (exemplar_boxes (B, K, 4) normalized xyxy,).
+        (B, P) bool); stage 2 (exemplar_boxes (B, K, 4) normalized xyxy,
+        and under the defined or sampled prior points, points_valid).
+        The learned and grid priors ignore the points; the defined and
+        sampled priors raise without them;
+      generator: a torch.Generator on the model's device; in training mode
+        it draws the dropout masks (without one, or in eval mode, the model
+        is deterministic, as the JAX package without a 'dropout' rng);
+      aux_outputs: stage 2, whether to return the earlier decoder layers'
+        {pred_logits, pred_boxes} (default: ``cfg.aux_loss``); False spares
+        a caller that does not read them the heads of those layers.
     """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         unsupported = []
-        if cfg.stage == 1:
-            if (cfg.spatial_prior != "defined" or cfg.exemplar_aggregation
-                    or cfg.with_variance_head):
-                unsupported.append("stage 1 with the defined spatial prior, no exemplar "
-                                   "aggregation and no variance head")
-        elif cfg.stage == 2:
-            if (cfg.spatial_prior != "grid" or not cfg.exemplar_aggregation
-                    or not cfg.with_variance_head):
-                unsupported.append("stage 2 with the grid spatial prior, exemplar "
-                                   "aggregation and the variance head")
-        else:
+        if cfg.stage not in (1, 2):
             unsupported.append("stages 1 and 2")
+        if cfg.exemplar_aggregation != (cfg.stage == 2) or \
+                cfg.with_variance_head != (cfg.stage == 2):
+            unsupported.append("exemplar aggregation and the variance head in stage 2 "
+                               "only")
         if cfg.num_feature_levels != 1 or cfg.masks or cfg.attention_type != "RCDA":
             unsupported.append("one feature level, RCDA attention, no mask head")
-        if cfg.aux_loss or cfg.backbone != "resnet50" or cfg.activation != "relu":
-            unsupported.append("ResNet-50, relu, no auxiliary outputs")
+        if cfg.backbone != "resnet50" or cfg.activation != "relu":
+            unsupported.append("ResNet-50 and relu")
         if unsupported:
             raise NotImplementedError("the port supports only " + "; ".join(unsupported))
+        if cfg.spatial_prior not in PRIORS:
+            raise ValueError(f"unknown spatial prior {cfg.spatial_prior!r}")
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
         self.backbone = nn.ModuleDict(
@@ -166,7 +179,22 @@ class CountingDetr(nn.Module):
             self.aggr_input_proj = nn.ModuleList([InputProj(2 * 2048, cfg.hidden_dim)])
         self.transformer = Transformer(cfg)
 
-    def forward(self, images, pad_mask, *prior):
+    def reference_points(self, B: int, device, points=None, points_valid=None):
+        """The prior's (reference_points (B, P, 2), query_valid (B, P) or None)."""
+        prior = self.cfg.spatial_prior
+        if prior == "learned":
+            pos = self.transformer.position.weight
+            return pos[None].expand(B, *pos.shape), None
+        if prior == "grid":
+            pos = grid_reference_points(self.cfg.num_query_position, device=device)
+            return pos[None].expand(B, *pos.shape), None
+        if points is None:
+            raise ValueError(f"the {prior} prior needs points")
+        return points, points_valid
+
+    def forward(self, images, pad_mask, *prior, generator: Optional[torch.Generator] = None,
+                aux_outputs: Optional[bool] = None):
+        g = generator if self.training else None
         if images.dtype == torch.uint8:
             images = normalize_uint8(images)
             # raw pads are 0, which normalizes to -mean/std: re-zero them so
@@ -177,27 +205,38 @@ class CountingDetr(nn.Module):
         feat = self.backbone["body"](images, pad_mask)
         h, w = feat.shape[1], feat.shape[2]
         fmask = downsample_mask(pad_mask, h, w)
+        B = images.shape[0]
         if self.cfg.stage == 1:
-            points, points_valid = prior
+            points, points_valid = (tuple(prior) + (None, None))[:2]
+            ref, query_valid = self.reference_points(B, images.device, points, points_valid)
             src = self.input_proj[0](feat, ~fmask)
-            tr = self.transformer(src, fmask, points, points_valid)
+            tr = self.transformer(src, fmask, ref, query_valid, generator=g)
             return {
                 "pred_logits": tr["cls"],
                 "pred_points": tr["coord"][..., :2],
                 "pred_wh": tr["coord"][..., 2:],
             }
-        (exemplar_boxes,) = prior
+        exemplar_boxes, points, points_valid = (tuple(prior) + (None, None))[:3]
+        ref, query_valid = self.reference_points(B, images.device, points, points_valid)
         feat = exemplar_aggregate(feat, exemplar_boxes)
         src = self.aggr_input_proj[0](feat, ~fmask)
-        B = images.shape[0]
-        pos = grid_reference_points(self.cfg.num_query_position, device=images.device)
-        ref = pos[None].expand(B, *pos.shape)
-        tr = self.transformer(src, fmask, ref)
+        aux = self.cfg.aux_loss if aux_outputs is None else aux_outputs
+        tr = self.transformer(src, fmask, ref, query_valid, generator=g, all_layers=aux)
+        if not aux:
+            return {
+                "pred_logits": tr["cls"],
+                "pred_boxes": tr["coord"],
+                "pred_vars": tr["var"],
+                "reference_points": tr["reference_points"],
+            }
+        cls, coord = tr["cls"], tr["coord"]
         return {
-            "pred_logits": tr["cls"],
-            "pred_boxes": tr["coord"],
-            "pred_vars": tr["var"],
+            "pred_logits": cls[-1],
+            "pred_boxes": coord[-1],
+            "pred_vars": tr["var"][-1],
             "reference_points": tr["reference_points"],
+            "aux_outputs": [{"pred_logits": cls[i], "pred_boxes": coord[i]}
+                            for i in range(cls.shape[0] - 1)],
         }
 
 
@@ -222,9 +261,8 @@ def init_weights_(model: CountingDetr, g: torch.Generator):
 def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
                 state_dict: Optional[dict] = None) -> CountingDetr:
     """A CountingDetr on ``device`` in eval mode: weights from ``state_dict``
-    (loaded strictly) or, without one, random from ``seed``. The model has
-    no dropout, so train and eval mode compute the same; a trainer calls
-    ``.train()`` all the same."""
+    (loaded strictly) or, without one, random from ``seed``. A trainer calls
+    ``.train()`` and passes its dropout generator to the forward."""
     dev = resolve_device(device)
     model = CountingDetr(cfg)
     if state_dict is None:

@@ -10,11 +10,18 @@ held in a one-element ModuleList so their keys keep the reference's ``.0``.
 dtype policy: parameters are float32 and are cast to the activation dtype
 where they are used; position embeddings are computed in float32 and cast;
 LayerNorm statistics are float32; head outputs are cast to float32.
+
+Dropout sits where the JAX layers put it, outside the attention cores: after
+the FFN's activation and on its output, and on every attention block's
+output. Its keep masks come from the ``torch.Generator`` a caller passes
+(the counterpart of the JAX package's 'dropout' rng); without one the
+layers are deterministic.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +37,19 @@ from countdetr_tpu_torch.ops.posemb import mask2pos, pos2posemb1d, pos2posemb2d
 # (countdetr_tpu/models/transformer.py): the last layer's own bias starts at
 # zero, so weight decay never pulls on the -2.
 WH_BIAS = (0.0, 0.0, -2.0, -2.0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): an element is kept with
+    probability 1 - rate, drawn from ``generator`` on x's device, and scaled
+    by 1 / (1 - rate). The identity without a generator or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Linear(nn.Linear):
@@ -110,67 +130,82 @@ class MHAttention(nn.Module):
 
 
 class FFN(nn.Module):
-    """Post-LN feed-forward block (reference transformer.py:410-424)."""
+    """Post-LN feed-forward block, dropout after the activation and on the
+    output (reference transformer.py:410-424)."""
 
-    def __init__(self, d_model, d_ffn):
+    def __init__(self, d_model, d_ffn, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = Linear(d_model, d_ffn)
         self.linear2 = Linear(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x):
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, generator=None):
+        h = dropout(F.relu(self.linear1(x)), self.dropout, generator)
+        return self.norm2(x + dropout(self.linear2(h), self.dropout, generator))
 
 
 class EncoderLayer(nn.Module):
     """RCDA self-attention over the feature grid (reference transformer.py:217-278)."""
 
-    def __init__(self, d_model, d_ffn, num_heads, variant="v3"):
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = RCDAAttention(d_model, num_heads, variant)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn)
+        self.ffn = FFN(d_model, d_ffn, dropout)
 
-    def forward(self, src, pad_mask, posemb_row, posemb_col):
+    def forward(self, src, pad_mask, posemb_row, posemb_col, generator=None):
         q_row = src + posemb_row[:, None, :, :]  # (B, H, W, C)
         q_col = src + posemb_col[:, :, None, :]
         src2 = self.self_attn(q_row, q_col, q_row, q_col, src, key_padding_mask=pad_mask)
-        return self.ffn(self.norm1(src + src2))
+        src = self.norm1(src + dropout(src2, self.dropout, generator))
+        return self.ffn(src, generator)
 
 
 class DecoderLayer(nn.Module):
     """Query self-attention (MHA) + RCDA cross-attention
     (reference transformer.py:315-407)."""
 
-    def __init__(self, d_model, d_ffn, num_heads, variant="v3"):
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MHAttention(d_model, num_heads)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = RCDAAttention(d_model, num_heads, variant)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn)
+        self.ffn = FFN(d_model, d_ffn, dropout)
 
     def forward(self, tgt, query_pos, query_pos_x, query_pos_y, src, pad_mask,
-                posemb_row, posemb_col, query_pad=None):
+                posemb_row, posemb_col, query_pad=None, generator=None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, key_padding_mask=query_pad))
+        tgt2 = self.self_attn(q, q, tgt, key_padding_mask=query_pad)
+        tgt = self.norm2(tgt + dropout(tgt2, self.dropout, generator))
         k_row = src + posemb_row[:, None, :, :]
         k_col = src + posemb_col[:, :, None, :]
         tgt2 = self.cross_attn(tgt + query_pos_x, tgt + query_pos_y, k_row, k_col, src,
                                key_padding_mask=pad_mask)
-        return self.ffn(self.norm1(tgt + tgt2))
+        tgt = self.norm1(tgt + dropout(tgt2, self.dropout, generator))
+        return self.ffn(tgt, generator)
 
 
 class Transformer(nn.Module):
     """Encoder-decoder over one feature level with the shared heads.
 
     forward(src (B, H, W, C), pad_mask (B, H, W) bool, reference_points
-    (B, P, 2), query_valid (B, P) bool or None) returns the last decoder
-    layer's
+    (B, P, 2), query_valid (B, P) bool or None, generator, all_layers)
+    returns the last decoder layer's
       cls (B, L, num_classes), coord (B, L, 4) sigmoid cxcywh,
       var (B, L, 2) when the variance head is on, reference_points (B, L, 2),
-    all float32, with L = P * num_query_pattern. Queries that are not
-    valid are masked as keys of the decoder's self-attention.
+    all float32, with L = P * num_query_pattern; with ``all_layers`` every
+    decoder layer's cls, coord and var, stacked (D, B, L, .) as the JAX
+    transformer returns them (the heads are one module each, applied after
+    every layer). Queries that are not valid are masked as keys of the
+    decoder's self-attention. ``generator`` turns dropout on.
+
+    The learned prior's anchors are ``position`` (num_query_position, 2),
+    held here under the reference's key ``transformer.position.weight``
+    and read by the model (models/anchor_detr.py).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -182,10 +217,10 @@ class Transformer(nn.Module):
         self.adapt_pos1d = adapt_pos(C)
         self.adapt_pos2d = adapt_pos(C)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant)
+            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout)
             for _ in range(cfg.enc_layers))
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant)
+            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout)
             for _ in range(cfg.dec_layers))
         self.cls_embed = nn.ModuleList([Linear(C, cfg.num_classes)])
         self.bbox_embed = nn.ModuleList([MLP(C, C, 4, 3)])
@@ -193,8 +228,11 @@ class Transformer(nn.Module):
         self.register_buffer("wh_bias", torch.tensor(WH_BIAS), persistent=False)
         if cfg.with_variance_head:
             self.bbox_variance = nn.ModuleList([MLP(C, C, 2, 3)])
+        if cfg.spatial_prior == "learned":
+            self.position = nn.Embedding(cfg.num_query_position, 2)
 
-    def forward(self, src, pad_mask, reference_points, query_valid=None):
+    def forward(self, src, pad_mask, reference_points, query_valid=None,
+                generator: Optional[torch.Generator] = None, all_layers: bool = False):
         cfg = self.cfg
         dt = self.compute_dtype
         src = src.to(dt)
@@ -213,25 +251,33 @@ class Transformer(nn.Module):
         posemb_col = self.adapt_pos1d(pos2posemb1d(pos_col, C).to(dt))  # (B, H, C)
         x = src
         for layer in self.encoder_layers:
-            x = layer(x, pad_mask, posemb_row, posemb_col)
+            x = layer(x, pad_mask, posemb_row, posemb_col, generator)
 
         query_pos = self.adapt_pos2d(pos2posemb2d(ref, C // 2).to(dt))
         query_pos_x = self.adapt_pos1d(pos2posemb1d(ref[..., 0], C).to(dt))
         query_pos_y = self.adapt_pos1d(pos2posemb1d(ref[..., 1], C).to(dt))
-        out = tgt
-        for layer in self.decoder_layers:
-            out = layer(out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
-                        posemb_row, posemb_col, query_pad)
+        ref_logit = inverse_sigmoid(ref)
 
-        delta = self.bbox_embed[0](out).float() + self.wh_bias
-        xy = delta[..., :2] + inverse_sigmoid(ref)
-        result = {
-            "cls": self.cls_embed[0](out).float(),
-            "coord": torch.sigmoid(torch.cat([xy, delta[..., 2:]], dim=-1)),
-            "reference_points": ref,
-        }
-        if cfg.with_variance_head:
-            result["var"] = self.bbox_variance[0](out).float()
+        def heads(out):
+            delta = self.bbox_embed[0](out).float() + self.wh_bias
+            xy = delta[..., :2] + ref_logit
+            h = {"cls": self.cls_embed[0](out).float(),
+                 "coord": torch.sigmoid(torch.cat([xy, delta[..., 2:]], dim=-1))}
+            if cfg.with_variance_head:
+                h["var"] = self.bbox_variance[0](out).float()
+            return h
+
+        out, per_layer = tgt, []
+        for i, layer in enumerate(self.decoder_layers):
+            out = layer(out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
+                        posemb_row, posemb_col, query_pad, generator)
+            if all_layers or i == len(self.decoder_layers) - 1:
+                per_layer.append(heads(out))
+        if all_layers:
+            result = {k: torch.stack([h[k] for h in per_layer]) for k in per_layer[0]}
+        else:
+            result = per_layer[-1]
+        result["reference_points"] = ref
         return result
 
 
@@ -265,3 +311,5 @@ def init_transformer_(tr: Transformer, g: torch.Generator):
         last = tr.bbox_variance[0].layers[-1]
         last.weight.fill_(0.01)
         last.bias.fill_(0.01)
+    if tr.cfg.spatial_prior == "learned":  # uniform [0, 1), as the JAX package
+        tr.position.weight.copy_(torch.rand(tr.position.weight.shape, generator=g))

@@ -17,11 +17,12 @@ eps = span / 1000 per image.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from countdetr_tpu_torch.ops import boxes as box_ops
 from countdetr_tpu_torch.ops.kernels.auction_kernel import SCALE_START, auction_assign
 
 
@@ -122,3 +123,41 @@ def exact_batched_match(cost: torch.Tensor, tgt_valid: torch.Tensor):
     tq, m = scipy_match(cost.detach().float().cpu().numpy(), tgt_valid.cpu().numpy())
     return (torch.from_numpy(tq).long().to(cost.device),
             torch.from_numpy(m).to(cost.device))
+
+
+# The reference's alternate matchers (2nd-stage matcher.py:11-172), which it
+# keeps as selectable strategies; leaf functions, as in the JAX package.
+
+
+def point_cost_matrix(pred_boxes: torch.Tensor, tgt_boxes: torch.Tensor,
+                      point_cost: float = 2.0, giou_cost: float = 2.0) -> torch.Tensor:
+    """Centre L1 distance plus GIoU cost (reference ChamferDistanceMatching /
+    PointHungarianMatcher, matcher.py:150-166): (B, Q, 4), (B, T, 4) cxcywh
+    -> (B, Q, T)."""
+    l1 = (pred_boxes[:, :, None, :2] - tgt_boxes[:, None, :, :2]).abs().sum(-1)
+    giou = box_ops.generalized_box_iou_pairwise(box_ops.box_cxcywh_to_xyxy(pred_boxes),
+                                                box_ops.box_cxcywh_to_xyxy(tgt_boxes))
+    return point_cost * l1 + giou_cost * (-giou)
+
+
+def chamfer_match(cost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Argmin both ways (reference ChamferDistanceMatching, matcher.py:168-171):
+    (the best query of each target (B, T), the best target of each query
+    (B, Q))."""
+    return cost.argmin(dim=1), cost.argmin(dim=2)
+
+
+def chamfer_point_distance(pred_pts: torch.Tensor, tgt_pts: torch.Tensor,
+                           tgt_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Symmetric Chamfer distance between point sets (the reference's
+    PointsDistance "chamfer" mode, matcher.py:66-137): (B, N, 2), (B, M, 2)
+    -> (B,). With ``tgt_valid`` (B, M), invalid targets are nobody's
+    nearest and the target -> prediction term averages the valid ones."""
+    d = (pred_pts[:, :, None, :] - tgt_pts[:, None, :, :]).square().sum(-1)
+    if tgt_valid is None:
+        return d.min(dim=2).values.mean(dim=1) + d.min(dim=1).values.mean(dim=1)
+    d = torch.where(tgt_valid[:, None, :], d, torch.tensor(1e9, dtype=d.dtype, device=d.device))
+    fwd = d.min(dim=2).values.mean(dim=1)
+    nv = tgt_valid.sum(dim=1).clamp(min=1)
+    bwd = torch.where(tgt_valid, d.min(dim=1).values, 0.0).sum(dim=1) / nv
+    return fwd + bwd

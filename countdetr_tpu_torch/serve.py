@@ -9,7 +9,10 @@ count out. The inference half of countdetr_tpu/train/engine.py
 
 Each request is padded into the bucket (pad mask included), the batch is
 space-to-depth packed and run through one forward; each request gets
-``count``, ``threshold``, ``boxes_cxcywh_px`` and ``scores``.
+``count``, ``threshold``, ``boxes_cxcywh_px`` and ``scores``. Under the
+learned and grid priors a request is (image, boxes); under the sampled and
+defined priors it carries its anchors too, (image, boxes, points (S, 2)
+normalized x, y), padded to the batch's longest with a validity mask.
 """
 
 from __future__ import annotations
@@ -24,14 +27,15 @@ from countdetr_tpu_torch.data.batching import pack_space_to_depth, pad_to_bucket
 from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting
 from countdetr_tpu_torch.models.anchor_detr import build_model
 
+POINTS_PRIORS = ("defined", "sampled")
 
-def pack_requests(requests: Sequence[Tuple[np.ndarray, np.ndarray]],
-                  bucket: Tuple[int, int]):
-    """Host-side batch of (uint8 HWC image, (K, 4) normalized xyxy boxes)
-    requests: (packed uint8 (B, H/2, W/2, 12), pad_mask (B, H, W), exemplar
-    boxes (B, K, 4) float32, original (w, h) per request)."""
+
+def pack_requests(requests: Sequence[Tuple[np.ndarray, ...]], bucket: Tuple[int, int]):
+    """Host-side batch of (uint8 HWC image, (K, 4) normalized xyxy boxes,
+    ...) requests: (packed uint8 (B, H/2, W/2, 12), pad_mask (B, H, W),
+    exemplar boxes (B, K, 4) float32, original (w, h) per request)."""
     images, masks, rects, sizes = [], [], [], []
-    for image, boxes in requests:
+    for image, boxes, *_ in requests:
         if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"request image must be uint8 HWC RGB, got "
                              f"{image.dtype} {image.shape}")
@@ -43,9 +47,22 @@ def pack_requests(requests: Sequence[Tuple[np.ndarray, np.ndarray]],
     return pack_space_to_depth(np.stack(images)), np.stack(masks), np.stack(rects), sizes
 
 
+def pack_points(requests: Sequence[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray, np.ndarray]:
+    """The requests' anchor points (their third element, (S_i, 2)), padded
+    to the longest: (points (B, S, 2) float32, points_valid (B, S) bool)."""
+    pts = [np.asarray(r[2], dtype=np.float32).reshape(-1, 2) for r in requests]
+    S = max(len(p) for p in pts)
+    points = np.zeros((len(pts), S, 2), np.float32)
+    valid = np.zeros((len(pts), S), bool)
+    for i, p in enumerate(pts):
+        points[i, :len(p)] = p
+        valid[i, :len(p)] = True
+    return points, valid
+
+
 class Predictor:
-    """Serves a stage-2 CountingDetr. Weights come from ``state_dict`` or,
-    without one, from ``seed``."""
+    """Serves a stage-2 CountingDetr under any of its priors. Weights come
+    from ``state_dict`` or, without one, from ``seed``."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
                  device="cuda", bucket: Tuple[int, int] = (592, 592), seed: int = 0):
@@ -54,19 +71,27 @@ class Predictor:
         self.bucket = tuple(bucket)
 
     @torch.inference_mode()
-    def forward(self, images: np.ndarray, pad_mask: np.ndarray,
-                exemplar_boxes: np.ndarray) -> Dict[str, torch.Tensor]:
-        """One forward of a packed batch on the predictor's device."""
+    def forward(self, images: np.ndarray, pad_mask: np.ndarray, exemplar_boxes: np.ndarray,
+                points: Optional[np.ndarray] = None,
+                points_valid: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """One forward of a packed batch on the predictor's device (the
+        points for the sampled and defined priors)."""
         dev = self.device
-        return self.model(
-            torch.from_numpy(images).to(dev, non_blocking=True),
-            torch.from_numpy(pad_mask).to(dev, non_blocking=True),
-            torch.from_numpy(exemplar_boxes).to(dev, non_blocking=True),
-        )
+        arrays = [images, pad_mask, exemplar_boxes]
+        if points is not None:
+            arrays += [points, points_valid]
+        return self.model(*(torch.from_numpy(a).to(dev, non_blocking=True) for a in arrays),
+                          aux_outputs=False)
 
-    def predict(self, requests: Sequence[Tuple[np.ndarray, np.ndarray]]) -> List[Dict]:
+    def predict(self, requests: Sequence[Tuple[np.ndarray, ...]]) -> List[Dict]:
         images, masks, rects, sizes = pack_requests(requests, self.bucket)
-        out = self.forward(images, masks, rects)
+        points = valid = None
+        prior = self.model.cfg.spatial_prior
+        if prior in POINTS_PRIORS:
+            if any(len(r) < 3 for r in requests):
+                raise ValueError(f"the {prior} prior takes (image, boxes, points) requests")
+            points, valid = pack_points(requests)
+        out = self.forward(images, masks, rects, points, valid)
         logits = out["pred_logits"].cpu().numpy()
         boxes = out["pred_boxes"].cpu().numpy()
         prob = 1.0 / (1.0 + np.exp(-logits[..., 0]))  # class-0 sigmoid

@@ -172,7 +172,9 @@ def infer_detections(
     (``count_pred``, ``count_gt`` from the untruncated dot count,
     ``threshold``, kept ``boxes_cxcywh_px`` and ``scores``) and, with
     ``out_path``, writes the predictions as a COCO JSON (cxcywh pixels, a
-    score and an anchor point per box)."""
+    score and an anchor point per box). Under the sampled prior the
+    batches' ``sampled_points`` are the anchors; a dataset that emits none
+    raises ValueError, as in the JAX package."""
     batcher = Batcher(dataset, batch_size, buckets, max_points=max_points, max_boxes=max_boxes,
                       num_workers=num_workers, pack_s2d=pack_s2d)
     images: List[Dict] = []
@@ -181,8 +183,15 @@ def infer_detections(
     ann_id = 1
     try:
         for batch in prefetch(iter(batcher)):
+            keys = ("images", "pad_mask", "exemplar_boxes")
+            if "sampled_points" in batch:
+                keys += ("sampled_points", "sampled_points_valid")
+            elif model.cfg.spatial_prior == "sampled":
+                raise ValueError(
+                    "spatial_prior='sampled' but the dataset emitted no 'sampled_points': use "
+                    "an FSCD-147 eval or pseudo dataset with num_sampled_points > 0")
             with torch.inference_mode():
-                out = model(*_inputs(model, batch, ("images", "pad_mask", "exemplar_boxes")))
+                out = model(*_inputs(model, batch, keys), aux_outputs=False)
                 logits, boxes, refs = (out[k].float().cpu().numpy() for k in
                                        ("pred_logits", "pred_boxes", "reference_points"))
             pts_valid = batch.get("points_valid")

@@ -9,11 +9,18 @@ reference 1st-stage engine.py:27-75, 2nd-stage engine.py:14-67).
 ``cfg.stage`` picks the loss. Stage 1 (``stage1_config``): the forward on
 the exemplar centres as queries and the wh losses against their w, h; no
 matching. Stage 2: the forward, matching on the device (the auction kernel,
-on detached outputs) and the stage-2 losses. Then backward (through the
-RCDA and MHA kernels' autograd Functions), clipping, the optimizer update
-and the LR schedule. Nothing in a step waits for the card, so steps queue
-back to back; the non-finite-loss count ``bad_steps`` stays on the device
-too.
+on detached outputs) and the stage-2 losses; with ``aux_loss`` each earlier
+decoder layer is matched on its own (one more auction launch each, as the
+JAX package matches each output) and its weighted class, L1 and GIoU terms
+are added. Then backward (through the RCDA and MHA kernels' autograd
+Functions), clipping, the optimizer update and the LR schedule. Nothing in
+a step waits for the card, so steps queue back to back; the
+non-finite-loss count ``bad_steps`` stays on the device too.
+
+With ``dropout > 0`` a step draws its masks from a generator seeded by
+(``TrainConfig.seed ^ 0x5EED``, the step), the counterpart of the JAX
+package's ``fold_in(PRNGKey(seed ^ 0x5EED), step)``: a resumed run draws
+the same masks, and a checkpoint carries no generator state.
 
 Batches are dicts in the Batcher's format (numpy or tensors): ``images``
 s2d-packed uint8 (B, H/2, W/2, 12), ``pad_mask`` (B, H, W) bool, optional
@@ -21,7 +28,9 @@ s2d-packed uint8 (B, H/2, W/2, 12), ``pad_mask`` (B, H, W) bool, optional
   stage 1: ``points`` (B, P, 2) cx, cy, ``points_valid`` (B, P) bool,
     ``whs`` (B, P, 2);
   stage 2: ``exemplar_boxes`` (B, K, 4) xyxy, ``boxes`` (B, T, 4) cxcywh,
-    ``boxes_valid`` (B, T) bool, optional ``labels`` (B, T) (default 0).
+    ``boxes_valid`` (B, T) bool, optional ``labels`` (B, T) (default 0),
+    and under the sampled prior ``sampled_points`` (B, S, 2),
+    ``sampled_points_valid`` (B, S).
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ from countdetr_tpu_torch.train.optimizer import (
 )
 
 BATCH_KEYS = ("images", "pad_mask", "exemplar_boxes", "boxes", "boxes_valid",
-              "labels", "batch_valid")
+              "labels", "batch_valid", "sampled_points", "sampled_points_valid")
+DROPOUT_SEED_XOR = 0x5EED
 STAGE1_BATCH_KEYS = ("images", "pad_mask", "points", "points_valid", "whs", "batch_valid")
 
 
@@ -69,11 +79,20 @@ def prepare_stage2_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def stage1_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout masks' generator of optimizer step ``step``: seeded from
+    (seed ^ 0x5EED, step) through numpy's SeedSequence, on ``device``."""
+    state = np.random.SeedSequence([seed ^ DROPOUT_SEED_XOR, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]) & (2**63 - 1))
+
+
+def stage1_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted stage-1 loss of a prepared batch: (total, the unweighted
     parts with ``loss``)."""
-    out = model(batch["images"], batch["pad_mask"], batch["points"], batch["points_valid"])
+    out = model(batch["images"], batch["pad_mask"], batch["points"], batch["points_valid"],
+                generator=generator)
     parts = loss_ops.stage1_criterion(out["pred_wh"], batch["points"], batch["whs"],
                                       batch["points_valid"])
     total = (train_cfg.wh_loss_coef * parts["loss_wh"]
@@ -96,23 +115,42 @@ def match_outputs(pred_logits, pred_boxes, batch, train_cfg: TrainConfig) -> Mat
 
 
 def stage2_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig,
-                match: Optional[MatchedTargets] = None
+                match: Optional[MatchedTargets] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], MatchedTargets]:
-    """Weighted stage-2 loss of a prepared batch (no auxiliary losses).
-    Returns (total, the unweighted parts with ``loss``, the match used);
-    ``match`` replaces the matcher when given."""
-    out = model(batch["images"], batch["pad_mask"], batch["exemplar_boxes"])
+    """Weighted stage-2 loss of a prepared batch. Returns (total, the
+    unweighted parts with ``loss``, the last layer's match); ``match``
+    replaces the matcher of the last layer when given. The batch's
+    ``sampled_points`` are the sampled prior's anchors. With auxiliary
+    outputs (``aux_loss``), each is matched on its own and adds its class,
+    L1 and GIoU terms, with variances of ones (the variance head is read
+    on the last layer only), as ``loss_ce_{i}``, ``loss_bbox_{i}``,
+    ``loss_giou_{i}`` (reference SetCriterion, 2nd-stage
+    anchor_detr.py:334-347)."""
+    out = model(batch["images"], batch["pad_mask"], batch["exemplar_boxes"],
+                batch.get("sampled_points"), batch.get("sampled_points_valid"),
+                generator=generator)
     if match is None:
         match = match_outputs(out["pred_logits"], out["pred_boxes"], batch, train_cfg)
-    parts = loss_ops.stage2_criterion(
-        out["pred_logits"], out["pred_boxes"], out["pred_vars"], batch["boxes"],
-        batch["labels"], match, focal_alpha=train_cfg.focal_alpha,
-        batch_valid=batch.get("batch_valid"),
-    )
     t = train_cfg
+
+    def criterion(logits, boxes, vars_, m):
+        return loss_ops.stage2_criterion(
+            logits, boxes, vars_, batch["boxes"], batch["labels"], m,
+            focal_alpha=t.focal_alpha, batch_valid=batch.get("batch_valid"))
+
+    parts = criterion(out["pred_logits"], out["pred_boxes"], out["pred_vars"], match)
     total = (t.cls_loss_coef * parts["loss_ce"] + t.bbox_loss_coef * parts["loss_bbox"]
              + t.giou_loss_coef * parts["loss_giou"]
              + t.variance_loss_coef * parts["loss_variance"])
+    for i, aux in enumerate(out.get("aux_outputs", ())):
+        m_i = match_outputs(aux["pred_logits"], aux["pred_boxes"], batch, t)
+        p_i = criterion(aux["pred_logits"], aux["pred_boxes"],
+                        torch.ones_like(out["pred_vars"]), m_i)
+        total = total + (t.cls_loss_coef * p_i["loss_ce"] + t.bbox_loss_coef * p_i["loss_bbox"]
+                         + t.giou_loss_coef * p_i["loss_giou"])
+        for k in ("loss_ce", "loss_bbox", "loss_giou"):
+            parts[f"{k}_{i}"] = p_i[k]
     parts["loss"] = total
     return total, parts, match
 
@@ -133,13 +171,14 @@ class Trainer:
         self.scheduler = build_scheduler(self.optimizer, train_cfg, steps_per_epoch)
         self.bad_steps = torch.zeros((), dtype=torch.int32, device=self.device)
 
-    def _loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _loss(self, batch: Dict, generator: Optional[torch.Generator] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The stage's weighted loss of a raw batch and its parts."""
         if self.cfg.stage == 1:
             return stage1_loss(self.model, prepare_stage1_batch(batch, self.device),
-                               self.train_cfg)
+                               self.train_cfg, generator=generator)
         total, parts, _ = stage2_loss(self.model, prepare_stage2_batch(batch, self.device),
-                                      self.train_cfg)
+                                      self.train_cfg, generator=generator)
         return total, parts
 
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -147,7 +186,9 @@ class Trainer:
         trainable parameters' gradient norm before clipping) as 0-d tensors
         on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self._loss(batch)
+        g = (dropout_generator(self.train_cfg.seed, self.scheduler.last_epoch, self.device)
+             if self.cfg.dropout > 0 else None)
+        total, metrics = self._loss(batch, g)
         total.backward()
         for p in self.params:
             # a tensor the loss does not reach (the cls head in stage 1)
@@ -162,7 +203,7 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """The losses of a batch, without an update."""
+        """The losses of a batch, without an update (and without dropout)."""
         return self._loss(batch)[1]
 
     def state_dict(self) -> Dict:

@@ -5,8 +5,9 @@ countdetr_tpu/train/checkpoints.py (``torch_state_dict_to_params``): it
 takes the flax variables of a stage-1 or stage-2 CountingDetr as numpy
 arrays (``{"params": {...}}``) and returns the port's state_dict, whose
 keys are the reference torch model's. Conv kernels go HWIO -> OIHW; the
-stem stays the reference's (64, 3, 7, 7). Every JAX parameter is used; one
-the mapping does not know raises.
+stem stays the reference's (64, 3, 7, 7). The learned prior's top-level
+``position`` goes to the reference's ``transformer.position.weight``. Every
+JAX parameter is used; one the mapping does not know raises.
 
 The bbox head's wh bias [0, 0, -2, -2] is added in the forward, outside the
 parameter, in the port as in the JAX package, so the head's last bias maps
@@ -120,7 +121,10 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             unknown("transformer", name)
 
-    extra = set(p) - {"backbone", proj_name, "transformer"}
+    if "position" in p:  # the learned prior's anchors
+        put("transformer.position.weight", p["position"])
+
+    extra = set(p) - {"backbone", proj_name, "transformer", "position"}
     if extra:
         unknown("params", sorted(extra)[0])
     return sd

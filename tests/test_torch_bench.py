@@ -8,7 +8,10 @@ and the device it ran on.
   queries at width 32, is under 0.1% of it);
 - train (both stages), e2e (the synthetic tree, the Batcher and
   Trainer.step), match: the scipy route and the flag-guarded plain auction
-  (the CUDA route needs the card, and is left out on the CPU).
+  (the CUDA route needs the card, and is left out on the CPU);
+- e2e's ``data_fraction_of_step`` keeps 3 significant digits, so a ratio
+  far below 0.0005 (a loaded host: a 0.2 img/s step against a 441 img/s
+  data path) still reads positive, where the JAX tool's 3 decimals read 0.
 """
 
 import json
@@ -104,6 +107,14 @@ def test_e2e_mode(capsys, tmp_path, monkeypatch):
     assert line["img_per_s_e2e"] > 0 and line["img_per_s_data_only"] > 0
     assert 0 < line["data_fraction_of_step"] < 1
     assert (tmp_path / "countdetr_torch_bench_64_4" / "synthetic_manifest.json").exists()
+
+
+@pytest.mark.parametrize("x,want", [(0.2 / 441.4, 0.000453), (1.23456e-6, 1.23e-6),
+                                    (0.008123, 0.00812), (0.5, 0.5), (0.99949, 0.999)])
+def test_data_fraction_keeps_three_significant_digits(x, want):
+    got = bench.sig3(x)
+    assert got == want and 0 < got < 1
+    assert round(1.23456e-6, 3) == 0.0  # what 3 decimals would print
 
 
 def test_match_mode_scipy_and_plain_routes(capsys):

@@ -7,9 +7,14 @@
   command lines (the stage presets, --exact_replay, --lr_drop_epochs, the
   --cost_* aliases, --no_pack_s2d, --host_normalize, LVIS, the decoded
   caches), and ``build_dataset`` the same reader class;
-- each flag value the port's model does not have yet exits with a
-  SystemExit naming its ROADMAP.md item (and none reaches the model's bare
-  NotImplementedError); the process topology of one process is JAX's;
+- each flag value the port's model does not have yet (the mask head, MHA
+  attention, multi-level) exits with a SystemExit naming its ROADMAP.md
+  item (and none reaches the model's bare NotImplementedError); the values
+  it has gained (the learned and sampled priors, a prior other than the
+  stage's own, --aux_loss, --dropout) run the mode at a tiny width, or
+  raise where the JAX model asserts (the defined prior in stage 2 has no
+  points to read); a bare ``--stage 2`` trains and infers from its
+  checkpoint; the process topology of one process is JAX's;
 - ``evaluate_predictions``, ``per_image_ap`` and ``analyze_results`` of both
   packages agree to 1e-12 on the same predictions, for FSCD-147 and
   FSCD-LVIS (the same float64 arithmetic on both sides).
@@ -21,6 +26,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from countdetr_tpu.cli import main as jmain
 from countdetr_tpu.cli import offline_eval as joffline
@@ -42,7 +48,7 @@ STAGE1 = ["--stage", "1", "--spatial_prior", "defined", "--num_query_pattern", "
 STAGE2 = ["--stage", "2", "--spatial_prior", "grid", "--num_query_position", "600",
           "--num_query_pattern", "1", "--no_aux_loss"]
 # fields one config has and the other has not
-JAX_ONLY = {"model": {"dropout", "use_pallas_rcda", "param_dtype", "remat"},
+JAX_ONLY = {"model": {"use_pallas_rcda", "param_dtype", "remat"},
             "data": set(), "train": {"mesh_shape", "mesh_axes"}}
 PORT_ONLY = {"model": {"rcda_variant"}, "data": set(), "train": set()}
 
@@ -83,9 +89,12 @@ def parse(mod, argv):
     STAGE2 + ["--decoded_cache_dir", "/cache", "--cache_mode", "--sync_checkpoint",
               "--auto_resume", "--resume", "r", "--log_every", "5", "--no_dilation"],
     STAGE2 + ["--spatial_prior", "sampled", "--num_sample_points", "64"],
+    ["--stage", "2"],
+    STAGE2 + ["--aux_loss", "--dropout", "0.1", "--spatial_prior", "learned"],
+    STAGE1 + ["--spatial_prior", "sampled", "--num_sample_points", "32", "--dropout", "0.2"],
 ], ids=["stage1", "stage2", "exact_replay", "lr_drop_epochs", "cost_aliases", "no_pack_s2d",
         "host_normalize", "lvis", "lvis_point", "decoded_cache", "decoded_cache_dir",
-        "sampled"])
+        "sampled", "bare_stage2", "aux_dropout", "stage1_sampled"])
 def test_config_from_args_matches_jax(argv):
     got = tmain.config_from_args(parse(tmain, argv))
     want = jmain.config_from_args(parse(jmain, argv))
@@ -128,18 +137,10 @@ def lvis_tree(tmp_path_factory):
 
 
 @pytest.mark.parametrize("argv,unsupported", [
-    (["--stage", "2"], "the learned prior"),  # the parser's default prior
-    (STAGE2 + ["--spatial_prior", "learned"], "the learned prior"),
-    (STAGE2 + ["--spatial_prior", "sampled"], "the sampled prior"),
-    (STAGE1[:2] + ["--spatial_prior", "grid"], "a prior other than the stage's own"),
-    (STAGE2[:2] + ["--spatial_prior", "defined"], "a prior other than the stage's own"),
-    (STAGE2 + ["--aux_loss"], "auxiliary per-decoder-layer losses"),
-    (STAGE2 + ["--dropout", "0.1"], "dropout > 0"),
     (STAGE2 + ["--masks"], "the mask head"),
     (STAGE2 + ["--attention_type", "nn.MultiheadAttention"], 'attention_type="MHA"'),
     (STAGE1 + ["--num_feature_levels", "4"], "multi-level"),
-], ids=["default_prior", "learned", "sampled", "stage1_grid", "stage2_defined", "aux_loss",
-        "dropout", "masks", "mha", "multilevel"])
+], ids=["masks", "mha", "multilevel"])
 @pytest.mark.parametrize("mode", ["train", "--infer"])
 def test_unsupported_flag_values_exit_naming_their_item(tree, tmp_path, argv, unsupported,
                                                         mode):
@@ -151,6 +152,72 @@ def test_unsupported_flag_values_exit_naming_their_item(tree, tmp_path, argv, un
     msg = str(e.value)
     assert unsupported in msg and "ROADMAP.md, Queue 1 item 6 (long tail)" in msg, msg
     assert not os.path.exists(tmp_path / "log.txt")
+
+
+TINY_CLI = ["--enc_layers", "1", "--dec_layers", "2", "--hidden_dim", "32", "--nheads", "4",
+            "--dim_feedforward", "64", "--buckets", "96x128", "--batch_size", "2",
+            "--num_workers", "0", "--max_boxes", "16", "--max_points", "16", "--epochs", "1",
+            "--max_steps", "1", "--log_every", "1"]
+
+
+def run_cli(tree, out, argv):
+    args = tmain.get_args_parser().parse_args(
+        ["--data_path", tree, "--output_dir", str(out), "--device", "cpu"] + TINY_CLI + argv)
+    return tmain.main(args)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--stage", "2"],  # the parser's default prior: learned, 300 x 3 = 900 queries
+    STAGE2 + ["--spatial_prior", "learned"],
+    STAGE2 + ["--spatial_prior", "sampled", "--num_sample_points", "32"],
+    # stage 1's criterion reads query i against point i: 16 grid queries, 16 points
+    STAGE1[:2] + ["--spatial_prior", "grid", "--num_query_position", "16",
+                  "--num_query_pattern", "1"],
+    STAGE2[:2] + ["--spatial_prior", "defined"],
+    STAGE2 + ["--aux_loss"],
+    STAGE2 + ["--dropout", "0.1"],
+], ids=["default_prior", "learned", "sampled", "stage1_grid", "stage2_defined", "aux_loss",
+        "dropout"])
+@pytest.mark.parametrize("mode", ["train", "--infer"])
+def test_flag_values_the_port_gained_run_the_mode(tree, tmp_path, argv, mode):
+    """What the refusals of these values became: train takes its step and
+    writes its log and checkpoint; --infer (stage 1: its --test) writes its
+    predictions. Stage 2 under the defined prior raises as the JAX model
+    asserts: no stage-2 dataset carries the points it reads."""
+    stage1 = argv[1] == "1"
+    extra = [] if mode == "train" else ["--test" if stage1 else "--infer"]
+    if "defined" in argv:
+        with pytest.raises(ValueError, match="the defined prior needs points"):
+            run_cli(tree, tmp_path, argv + extra)
+        return
+    out = run_cli(tree, tmp_path, argv + extra)
+    if mode == "train":
+        assert out.scheduler.last_epoch == 1 and int(out.bad_steps) == 0
+        log = [json.loads(line) for line in (tmp_path / "log.txt").read_text().splitlines()]
+        assert len(log) == 1 and np.isfinite(log[0]["loss"])
+        if "--aux_loss" in argv:
+            assert "loss_ce_0" in log[0] and "val_loss_giou_0" in log[0]
+        assert (tmp_path / "checkpoints" / "latest.json").exists()
+    elif stage1:
+        assert (tmp_path / "pseudo_test_anchor_detr_v3.json").exists()
+    else:
+        assert set(out) == {"val", "test"} and out["test"]["images"] == 3
+        assert (tmp_path / "predictions_test.json").exists()
+
+
+def test_bare_stage2_trains_then_infers_from_its_checkpoint(tree, tmp_path):
+    """The JAX CLI's default model: two steps, then --infer from the
+    checkpoint, whose learned anchors moved off the seeded ones."""
+    trainer = run_cli(tree, tmp_path, ["--stage", "2", "--max_steps", "2", "--epochs", "2"])
+    assert trainer.cfg.spatial_prior == "learned" and trainer.cfg.num_queries == 900
+    trained = trainer.model.transformer.position.weight.detach().clone()
+    seeded = tmain.build_model(trainer.cfg, device="cpu", seed=42).transformer.position.weight
+    assert not torch.equal(trained, seeded.detach())
+    metrics = run_cli(tree, tmp_path, ["--stage", "2", "--infer", "--checkpoint_path",
+                                       str(tmp_path / "checkpoints")])
+    assert set(metrics) == {"val", "test"}
+    preds = json.loads((tmp_path / "predictions_test.json").read_text())
+    assert preds["box_format"] == "cxcywh" and len(preds["images"]) == 3
 
 
 def test_backbone_other_than_resnet50_exits(tree, tmp_path):

@@ -117,8 +117,13 @@ def test_stage1_config_and_refusals():
     assert not cfg.with_variance_head and not cfg.exemplar_aggregation
     with pytest.raises(ValueError, match="rcda_variant"):
         stage1_config(rcda_variant="rank2")
-    for bad in (dict(spatial_prior="learned"), dict(spatial_prior="sampled"),
-                dict(aux_loss=True), dict(attention_type="MHA"), dict(num_feature_levels=3)):
+    # the learned and sampled priors and aux_loss are in the port's model
+    # (stage 1 returns no auxiliary outputs, as in the JAX package)
+    for ok in (dict(spatial_prior="learned"), dict(spatial_prior="sampled"),
+               dict(aux_loss=True)):
+        model = CountingDetr(stage1_config(**TINY1, **ok))
+        assert hasattr(model.transformer, "position") == (ok.get("spatial_prior") == "learned")
+    for bad in (dict(attention_type="MHA"), dict(num_feature_levels=3)):
         with pytest.raises(NotImplementedError):
             CountingDetr(stage1_config(**TINY1, **bad))
 
