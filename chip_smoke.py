@@ -102,6 +102,26 @@ Phases, each printed as one JSON line:
             decoder layer, each its own launch), then 3 under the sampled
             prior (12/6/1); finite losses, every trainable tensor moved,
             step and matcher times;
+  longtail  AnchorDETR's remaining model options at full width: A, standard
+            attention in stage 2 (576 grid queries; 18 MHA launches a
+            forward); B, three feature levels in stage 1 (9 RCDA or rank-1
+            and 9 MHA); C, the mask head in stage 2 (12 RCDA and 6 MHA). The
+            MHA kernel against its plain version in bfloat16 and float32 at
+            the shapes they give it: B=32 L=S=1369 (A's encoder, image 0's
+            keys padded), B=32 L=576 S=1369 (A's cross-attention), B=8064
+            and B=70000 L=S=3 (B's level layer, one row a pixel; 70000 is
+            past gridDim.z's 65535), each timed with its bound and SDPA;
+            float32 card-vs-CPU parity of A (B=2 at 592x592, one padded),
+            B under "v3" and "rank1" (B=2, 384x672) and C (B=1, pred_masks
+            compared); serving A, 3 batches of 32 (54 MHA launches); 6
+            bfloat16 train steps of A (B=8 at 592x592, T=700 and 128; an
+            auction a step) and of B (B=8, 384x672); pseudo-labels under B
+            with each variant, boxes within 1 px; the mask head served at
+            B=2 (pred_masks (2, 576, 148, 148), ms a forward with and
+            without the head, peak memory); the CLI with each of the three flag
+            values, 2 train steps and then --infer (stage 1: --test), on a
+            16/8/8-image tree of the cli phase's shape, each mode's stdout
+            in --out/longtail/;
   cli       the port's command line at full width in bfloat16 on a
             synthetic FSCD-147 tree of the engine's shape without pseudo
             labels: stage-1 train (6 steps, rank-1), --generate_pseudo_label
@@ -117,8 +137,9 @@ Phases, each printed as one JSON line:
             rank-1 and 6 MHA a forward, 1 auction a stage-2 train or eval
             step), the files written, peak memory and no worker process
             left; the modes' output in --out/cli/;
-Then the kernels line with each path's launch counts (its "launches": the
-cli phase's pipeline modes), the card's
+Then (after the cli phase, the longtail phase) the kernels line with each
+path's launch counts (its "launches": the cli phase's pipeline modes), the
+card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
 non-zero; without a CUDA device nothing is printed on stdout.
 
@@ -130,6 +151,7 @@ non-zero; without a CUDA device nothing is printed on stdout.
     python3 chip_smoke.py --only cli             # build, then only the
                                                  # cli phase
     python3 chip_smoke.py --only defaults        # likewise, the defaults phase
+    python3 chip_smoke.py --only longtail        # likewise, the longtail phase
     python3 chip_smoke.py --only convergence     # the learning-loop check
 
 The ``convergence`` phase runs only when asked for:
@@ -157,12 +179,20 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("engine", "cli", "defaults", "convergence")  # runnable alone with --only
+PHASES = ("engine", "cli", "defaults", "longtail", "convergence")  # runnable alone with --only
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # f32 outside tensor cores
 TOL = {torch.bfloat16: {"rcda": 2e-2, "mha": 1e-2}, torch.float32: {"rcda": 1e-4, "mha": 1e-4}}
+# bfloat16 MHA: each output element within max(1e-2, one bf16 ulp of the
+# plain version's |output|) (``mha_errors``): at |output| >= 2 one bf16 ulp
+# is already larger than 1e-2. Both versions also round each probability
+# to bf16 once, and two correct roundings of p_j differ by up to one ulp,
+# which moves the output by ulp(p_j) |v_j|: the sum of that over the keys
+# is added (``mha_p_rounding``; it matters where a row has few keys, as
+# the level layer's 3, where one probability near 1 meets |v| ~ 5).
+MHA_BF16_TOL = "max(1e-2, 1 bf16 ulp of |ref|) + sum_j ulp(p_j) |v_j|"
 PARITY_TOL = 1e-3
 GRAD_TOL = 1e-3  # relative: max |card - cpu| / max |cpu|
 EXEMPLARS = [[0.1, 0.1, 0.3, 0.3], [0.4, 0.4, 0.6, 0.6], [0.2, 0.5, 0.4, 0.7]]
@@ -264,45 +294,101 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
     }
 
 
-def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8):
+def bf16_ulp(x):
+    """One bf16 ulp of |x| (8 significand bits), float32."""
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), torch.frexp(x.float())[1] - 8)
+
+
+def mha_p_rounding(q, k, v, bias, n):
+    """sum_j ulp(p_j) |v_j| for each output element (B, L, E) float32: what
+    one bf16 rounding of each probability can move it by."""
+    B, L, E = q.shape
+    d = E // n
+    logits = torch.einsum("blnd,bsnd->bnls", q.reshape(B, L, n, d).float(),
+                          k.reshape(B, -1, n, d).float())
+    p = torch.softmax(logits + bias.float()[:, None, None, :], dim=-1)
+    del logits
+    return torch.einsum("bnls,bsnd->blnd", bf16_ulp(p),
+                        v.reshape(B, -1, n, d).float().abs()).reshape(B, L, E)
+
+
+def mha_errors(got, want, dt, p_rounding=None):
+    """(largest |error|, largest error in bf16 ulps of |want|, the largest
+    share of its tolerance an element uses): bfloat16 each element within
+    MHA_BF16_TOL (``p_rounding`` from ``mha_p_rounding``), float32 all
+    within TOL[float32]["mha"]; within when the share is at most 1."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulp = bf16_ulp(w)
+    ulps = (err / ulp).max().item()
+    if dt == torch.bfloat16:
+        tol = ulp.clamp(min=TOL[dt]["mha"]) + (0 if p_rounding is None else p_rounding)
+        share = (err / tol).max().item()
+    else:
+        share = err.max().item() / TOL[dt]["mha"]
+    return err.max().item(), ulps, share
+
+
+def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8, S=None, key_grid=None, time_it=True):
+    """One MHA core call against its plain version, timed with SDPA beside
+    it. S keys (default L); image 0's keys partly masked (past key 500, or
+    with ``key_grid`` (H, W, h, w) the padding of an H x W grid around its
+    top-left h x w), image 1's all masked (the uniform softmax)."""
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     d = E // n
-    q, k, v = (r(B, L, E) * d**-0.5).to(dt), r(B, L, E).to(dt), r(B, L, E).to(dt)
-    bias = torch.zeros(B, L, device=dev)
-    bias[0, 500:] = -1e30  # partly masked keys
+    S = L if S is None else S
+    q, k, v = (r(B, L, E) * d**-0.5).to(dt), r(B, S, E).to(dt), r(B, S, E).to(dt)
+    bias = torch.zeros(B, S, device=dev)
+    if key_grid is None:
+        bias[0, 500:] = -1e30  # partly masked keys
+    else:
+        H, W, h, w = key_grid
+        pad = torch.ones(H, W, dtype=torch.bool, device=dev)
+        pad[:h, :w] = False
+        bias[0, pad.flatten()] = -1e30
     bias[1, :] = -1e30  # every key masked: uniform softmax
     got = mha_kernel.mha_core(q, k, v, bias, n)
     torch.cuda.synchronize()
     want = mha_kernel.mha_core_plain(q, k, v, bias, n)
-    err = (got.float() - want.float()).abs().max().item()
-    del want
+    p_rounding = mha_p_rounding(q, k, v, bias, n) if dt == torch.bfloat16 else None
+    err, err_ulps, share = mha_errors(got, want, dt, p_rounding)
+    del want, p_rounding
     dead = got[1].float()
-    uniform_err = (dead - v[1].float().mean(0, keepdim=True)).abs().max().item()
-    qh, kh, vh = (x.view(B, L, n, d).transpose(1, 2) for x in (q, k, v))
-    mask = bias[:, None, None, :].to(dt)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dead_err, _, dead_share = mha_errors(dead, v[1].float().mean(0, keepdim=True).expand_as(dead),
+                                         dt)
     isz = torch.tensor([], dtype=dt).element_size()
-    ops = 4 * B * L * L * E
-    nbytes = isz * 4 * B * L * E + 4 * B * L
-    exps = B * n * L * L  # one per score
+    ops = 4 * B * L * S * E
+    nbytes = isz * 2 * B * (L + S) * E + 4 * B * S
+    exps = B * n * L * S  # one per score
     bound_ms, bound_by = bound(ops, nbytes, dt, exps)
-    kernel_ms = cuda_ms(lambda: mha_kernel.mha_core(q, k, v, bias, n), 20)
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0), 20)
-    return {
-        "shape": {"B": B, "L": L, "S": L, "E": E, "heads": n},
+    rec = {
+        "shape": {"B": B, "L": L, "S": S, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
-        "max_abs_err": err, "tol": TOL[dt]["mha"],
+        "max_abs_err": err, "max_err_ulps": err_ulps,
+        "tol": MHA_BF16_TOL if dt == torch.bfloat16 else TOL[dt]["mha"],
+        "tol_share": share, "within_tol": share <= 1,
         "finite": bool(torch.isfinite(got).all()),
         "dead_row_finite": bool(torch.isfinite(dead).all()),
-        "dead_row_uniform_err": uniform_err,
-        "kernel_ms": kernel_ms,
-        "plain_ms": cuda_ms(lambda: mha_kernel.mha_core_plain(q, k, v, bias, n),
-                            5 if L <= 1024 else 2, warmup=1),
-        "library_ms": library_ms, "kernel_over_library": kernel_ms / library_ms,
+        "dead_row_uniform_err": dead_err, "dead_row_within_tol": dead_share <= 1,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
     }
+    if not time_it:
+        return rec
+    qh = q.view(B, L, n, d).transpose(1, 2)
+    kh, vh = (x.view(B, S, n, d).transpose(1, 2) for x in (k, v))
+    mask = bias[:, None, None, :].to(dt)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec["kernel_ms"] = cuda_ms(lambda: mha_kernel.mha_core(q, k, v, bias, n), 20)
+    rec["plain_ms"] = cuda_ms(lambda: mha_kernel.mha_core_plain(q, k, v, bias, n),
+                              5 if L * S <= 1024 * 1024 else 2, warmup=1)
+    try:
+        rec["library_ms"] = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, scale=1.0), 20)
+        rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_ms"]
+    except RuntimeError as e:  # SDPA's own launch limits
+        rec["library_ms"], rec["library_error"] = None, str(e)[:200]
+    return rec
 
 
 def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
@@ -338,11 +424,20 @@ def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
             k, v = r(B, S, E).to(dt), r(B, S, E).to(dt)
             bias = torch.zeros(B, S, device=dev)
             bias[0, S // 2 + 1:] = -1e30
-            err = (mha_kernel.mha_core(q, k, v, bias, n).float()
-                   - mha_kernel.mha_core_plain(q, k, v, bias, n).float()).abs().max().item()
+            err, ulps, share = mha_errors(
+                mha_kernel.mha_core(q, k, v, bias, n), mha_kernel.mha_core_plain(q, k, v, bias, n),
+                dt, mha_p_rounding(q, k, v, bias, n) if dt == torch.bfloat16 else None)
             out.append({"name": "mha", "shape": [B, L, S, E, n], "dtype": str(dt)[6:],
-                        "max_abs_err": err, "tol": TOL[dt]["mha"]})
+                        "max_abs_err": err, "max_err_ulps": ulps, "tol_share": share,
+                        "within_tol": share <= 1,
+                        "tol": MHA_BF16_TOL if dt == torch.bfloat16 else TOL[dt]["mha"]})
     return out
+
+
+def in_tol(c):
+    """A kernel case within its tolerance (MHA's own verdict, else the
+    largest error against ``tol``)."""
+    return c["within_tol"] if "within_tol" in c else c["max_abs_err"] <= c["tol"]
 
 
 def cost_structures(rng, B, Q, T):
@@ -1688,6 +1783,317 @@ def defaults_phase(rng, smi, failures):
     return paths
 
 
+# the longtail phase: AnchorDETR's remaining model options at full width
+# (ResNet-50-DC5, 6+6 layers, hidden 256, 8 heads): A, standard attention in
+# stage 2 (576 grid queries); B, three feature levels in stage 1; C, the
+# mask head in stage 2
+LONGTAIL = {"A": dict(attention_type="MHA"), "B": dict(num_feature_levels=3),
+            "C": dict(masks=True)}
+# the MHA core at the shapes A and B give it: (B, L, S, key grid of image 0
+# (H, W, valid h, valid w)): A's encoder over 37x37 keys and its decoder's
+# cross-attention at serving B=32; B's level layer, B*H*W pixels of 3
+# levels, at B=8 in the 384x672 bucket (8064) and past gridDim.z's 65535
+LONGTAIL_MHA = ((32, 1369, 1369, (37, 37, 30, 25)), (32, 576, 1369, (37, 37, 30, 25)),
+                (8064, 3, 3, None), (70000, 3, 3, None))
+LONGTAIL_PER_FORWARD = {"A": {"mha": 18}, "B": {"rcda": 9, "mha": 9}, "C": {"rcda": 12, "mha": 6}}
+LONGTAIL_TREE = dict(ENGINE_TREE, n_train=16, n_val=8, n_test=8)
+# bucket side (A, C), stage 1's bucket (B), its padded image, serving and
+# training batches
+LONGTAIL_SIZE, LONGTAIL_S1, LONGTAIL_S1_PAD = 592, (384, 672), (300, 500)
+LONGTAIL_SERVE_BATCH, LONGTAIL_TRAIN_BATCH = 32, 8
+# the CLI runs: (config, flags, the inference mode)
+LONGTAIL_CLI = {"mha": ("A", CLI_STAGE2 + ["--attention_type", "nn.MultiheadAttention"],
+                        "--infer"),
+                "levels": ("B", CLI_STAGE1 + ["--num_feature_levels", "3"], "--test"),
+                "masks": ("C", CLI_STAGE2 + ["--masks"], "--infer")}
+
+
+def longtail_phase(g, smi, failures, out_dir):
+    """AnchorDETR's remaining model options at full width: the MHA kernel
+    at the shapes they give it, float32 card-vs-CPU parity, serving,
+    training, pseudo-labels, the mask head's serving and the CLI. Returns
+    (each path's launches, the bfloat16 MHA cases)."""
+    import contextlib
+
+    from countdetr_tpu_torch.cli import main as cli
+    from countdetr_tpu_torch.config import TrainConfig, stage1_config, stage2_config
+    from countdetr_tpu_torch.data.batching import Batcher
+    from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
+    from countdetr_tpu_torch.models.anchor_detr import CountingDetr, build_model
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.serve import Predictor, pack_requests
+    from countdetr_tpu_torch.train.engine import generate_pseudo_labels, point_tiers
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rec = {"phase": "longtail", "configs": LONGTAIL}
+    paths = {}
+
+    def want(per_forward, n, auction=0):
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": auction}
+        w.update({k: v * n for k, v in per_forward.items()})
+        return w
+
+    def check_launches(path, expected):
+        paths[path] = launch_counts(*kernels)
+        if paths[path] != expected:
+            failures.append(("longtail launches", path, paths[path], expected))
+        return {"launches": paths[path], "launches_expected": expected}
+
+    # 1. the MHA kernel against its plain version at the new shapes
+    t = time.perf_counter()
+    rec["mha"] = [mha_case(mha_kernel, g, dt, B=B, L=L, S=S, key_grid=grid)
+                  for B, L, S, grid in LONGTAIL_MHA for dt in (torch.bfloat16, torch.float32)]
+    rec["mha_s"] = time.perf_counter() - t
+    for c in rec["mha"]:
+        if not (in_tol(c) and c["finite"] and c["dead_row_finite"] and c["dead_row_within_tol"]):
+            failures.append(("longtail mha", c["shape"], c["dtype"], c["max_abs_err"]))
+
+    # 2. float32 parity, card (kernels) against CPU (plain), one padded image
+    def parity(name, cfg, arrays, keys, seed):
+        cpu_model = build_model(cfg, device="cpu", seed=0)
+        perturb_(cpu_model, seed)  # the zero-initialised box head must depend on the input
+        gpu_model = build_model(cfg, device="cuda", state_dict=cpu_model.state_dict())
+        with torch.inference_mode():
+            og = gpu_model(*(torch.from_numpy(a).cuda() for a in arrays))
+            oc = cpu_model(*(torch.from_numpy(a) for a in arrays))
+        errs = {k: (og[k].cpu() - oc[k]).abs().max().item() for k in keys}
+        finite = all(bool(torch.isfinite(og[k]).all()) for k in keys)
+        r = {"max_abs_err": errs, "finite": finite,
+             "shapes": {k: list(og[k].shape) for k in keys}}
+        if not (max(errs.values()) <= PARITY_TOL and finite):
+            failures.append(("longtail parity", name, r))
+        return r
+
+    t = time.perf_counter()
+    rec["parity"] = {"dtype": "float32", "tol": PARITY_TOL}
+    s2_keys = ("pred_logits", "pred_boxes", "pred_vars")
+    S, S1, SB, TB = LONGTAIL_SIZE, LONGTAIL_S1, LONGTAIL_SERVE_BATCH, LONGTAIL_TRAIN_BATCH
+    padded = (S * 430 // 592, S * 511 // 592)
+    arrays = pack_requests(make_packed_batch(rng, [(S, S), padded]), (S, S))[:3]
+    rec["parity"]["A"] = parity("A", stage2_config(**LONGTAIL["A"]), arrays, s2_keys, 11)
+    b1 = stage1_batch(rng, 2, S1, 700, n_valid=500, pad=LONGTAIL_S1_PAD)
+    arrays = tuple(b1[k] for k in ("images", "pad_mask", "points", "points_valid"))
+    for v in ("v3", "rank1"):
+        rec["parity"][f"B_{v}"] = parity(f"B {v}", stage1_config(**LONGTAIL["B"], rcda_variant=v),
+                                         arrays, ("pred_logits", "pred_wh", "pred_points"), 12)
+    arrays = pack_requests(make_packed_batch(rng, [padded]), (S, S))[:3]
+    rec["parity"]["C"] = parity("C", stage2_config(**LONGTAIL["C"]), arrays,
+                                s2_keys + ("pred_masks",), 13)
+    rec["parity"]["batches"] = {"A": [[S, S], list(padded)],
+                                "B": [list(S1), list(LONGTAIL_S1_PAD)], "B_points": [500, 700],
+                                "C": [[S, S], list(padded)]}
+    rec["parity_s"] = time.perf_counter() - t
+
+    # 3. serving A: 3 batches of 32 at 592x592
+    pred = Predictor(stage2_config(**LONGTAIL["A"], compute_dtype="bfloat16"), device="cuda",
+                     bucket=(S, S), seed=0)
+    batches = [make_packed_batch(rng, [(S, S)] * SB) for _ in range(3)]
+    pred.predict(batches[0])  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    reset_launches(*kernels)
+    t = time.perf_counter()
+    results = [r for reqs in batches for r in pred.predict(reqs)]
+    wall = time.perf_counter() - t
+    rec["serving_A"] = check_launches("serving_A", want(LONGTAIL_PER_FORWARD["A"], 3))
+    if not all(np.isfinite(r["scores"]).all() and np.isfinite(r["boxes_cxcywh_px"]).all()
+               for r in results):
+        failures.append(("longtail serving A", "non-finite output"))
+    images, masks, rects, _ = pack_requests(batches[0], (S, S))
+    dev_in = [torch.from_numpy(a).cuda() for a in (images, masks, rects)]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: pred.model(*dev_in), 5, warmup=1)
+        prof = profile_calls(lambda: pred.model(*dev_in), 2)
+    rec["serving_A"].update({"dtype": "bfloat16", "batches": 3, "batch_size": SB,
+                             "bucket": [S, S], "predict_img_per_s": 3 * SB / wall,
+                             "forward_ms": fwd_ms, "img_per_s": SB * 1e3 / fwd_ms,
+                             "device_idle_share": prof["device_idle_share"], "profile": prof})
+    del pred, dev_in
+
+    # 4. training A (B=8 at 592x592, T=700 and T=128 alternating) and B (B=8
+    # in the 384x672 bucket, the 3 exemplar centres as queries)
+    train_runs = {
+        "A": (stage2_config(**LONGTAIL["A"], compute_dtype="bfloat16"),
+              {700: train_batch(rng, TB, S, 700, n_valid_first=40),
+               128: train_batch(rng, TB, S, 128)}, [700, 128] * 3),
+        "B": (stage1_config(**LONGTAIL["B"], compute_dtype="bfloat16"),
+              dict(enumerate(stage1_batch(rng, TB, S1, 3) for _ in range(2))), [0, 1] * 3),
+    }
+    for name, (cfg, tb, plan) in train_runs.items():
+        trainer = Trainer(cfg, TrainConfig(), device="cuda", seed=0)
+        before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+                  if p.requires_grad}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernels)
+        step_ms, losses = [], []
+        for key in plan:
+            t = time.perf_counter()
+            m = trainer.step(tb[key])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: v.item() for k, v in m.items()})
+        r = check_launches(f"train_{name}", want(LONGTAIL_PER_FORWARD[name], len(plan),
+                                                 len(plan) if cfg.stage == 2 else 0))
+        if not all(np.isfinite(v) for m in losses for v in m.values()) or \
+                int(trainer.bad_steps.item()):
+            failures.append(("longtail train", name, "non-finite", losses))
+        # stage 1's loss does not reach the cls head (only the decay moves
+        # it, below float32 resolution)
+        not_moved = [k for k, p in trainer.model.named_parameters() if p.requires_grad
+                     and torch.equal(before[k], p.detach())
+                     and not (cfg.stage == 1 and k.startswith("transformer.cls_embed"))]
+        if not_moved:
+            failures.append(("longtail train", name, "not moved", not_moved))
+        steady = step_ms[1:]
+        prof = profile_calls(lambda: trainer.step(tb[plan[0]]), 1, top=12)
+        r.update({"dtype": "bfloat16", "batch": TB, "step_ms": step_ms,
+                  "step_ms_mean_after_first": float(np.mean(steady)),
+                  "train_img_per_s": TB * 1e3 / float(np.mean(steady)),
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "losses": [m["loss"] for m in losses], "not_moved": not_moved,
+                  "device_idle_share": prof["device_idle_share"], "profile": prof})
+        rec[f"train_{name}"] = r
+        del trainer
+
+    # 5. pseudo-labels under B, "v3" then "rank1", boxes within 1 px
+    ds = pseudo_dataset(rng, n=8)
+    kw = dict(batch_size=8, buckets=STAGE1_BUCKETS, max_points=700, pack_s2d=True)
+    n_batches = len(Batcher(ds, 8, STAGE1_BUCKETS, max_points=700, point_tiers=point_tiers(700)))
+    cpu_model = build_model(stage1_config(**LONGTAIL["B"]), device="cpu", seed=0)
+    perturb_(cpu_model, 14)  # the wh head must depend on the image
+    state = cpu_model.state_dict()
+    out_tmp = tempfile.mkdtemp(prefix="longtail_pseudo_")
+    boxes, rec["pseudo_B"] = {}, {"images": len(ds), "batches": n_batches}
+    for v in ("v3", "rank1"):
+        model = build_model(stage1_config(**LONGTAIL["B"], compute_dtype="bfloat16",
+                                          rcda_variant=v), device="cuda", state_dict=state)
+        path = os.path.join(out_tmp, f"pseudo_{v}.json")
+        generate_pseudo_labels(model, ds, path, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(*kernels)
+        t = time.perf_counter()
+        generate_pseudo_labels(model, ds, path, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        per = dict(LONGTAIL_PER_FORWARD["B"])
+        if v == "rank1":
+            per["rcda_rank1"] = per.pop("rcda")
+        r = check_launches(f"pseudo_B_{v}", want(per, n_batches))
+        with open(path) as f:
+            boxes[v] = np.asarray([a["bbox"] for a in json.load(f)["annotations"]], np.float64)
+        r.update({"seconds": seconds, "img_per_s": len(ds) / seconds,
+                  "annotations": len(boxes[v])})
+        rec["pseudo_B"][v] = r
+        del model
+    shutil.rmtree(out_tmp)
+    a, b = boxes["v3"], boxes["rank1"]
+    same = a.shape == b.shape and len(a) == sum(len(s["points"]) for s in ds) \
+        and bool((a[:, :2] == b[:, :2]).all())
+    diff = float(np.abs(a[:, 2:] - b[:, 2:]).max()) if same else float("inf")
+    rec["pseudo_B"]["wh_px_max_diff"] = diff
+    if not diff <= 1:
+        failures.append(("longtail pseudo-labels", "variants disagree", diff))
+
+    # 6. the mask head served, C: B=2 at 592x592
+    pred = Predictor(stage2_config(**LONGTAIL["C"], compute_dtype="bfloat16"), device="cuda",
+                     bucket=(S, S), seed=0)
+    reqs = make_packed_batch(rng, [(S, S), padded])
+    pred.predict(reqs)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(*kernels)
+    results = pred.predict(reqs)
+    r = check_launches("serving_C", want(LONGTAIL_PER_FORWARD["C"], 1))
+    if not all(np.isfinite(x["scores"]).all() for x in results):
+        failures.append(("longtail mask serving", "non-finite scores"))
+    images, masks, rects, _ = pack_requests(reqs, (S, S))
+    dev_in = [torch.from_numpy(x).cuda() for x in (images, masks, rects)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        out = pred.model(*dev_in)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fwd_ms = cuda_ms(lambda: pred.model(*dev_in), 3, warmup=1)
+        bare_ms = cuda_ms(lambda: pred.model(*dev_in, masks=False), 3, warmup=1)
+    pm = out["pred_masks"]
+    want_shape = [2, stage2_config().num_queries, -(-S // 4), -(-S // 4)]
+    if list(pm.shape) != want_shape or not bool(torch.isfinite(pm).all()):
+        failures.append(("longtail mask serving", list(pm.shape)))
+    r.update({"dtype": "bfloat16 (the mask head float32)", "batch": 2,
+              "pred_masks_shape": list(pm.shape),
+              "forward_ms": fwd_ms, "forward_ms_without_mask_head": bare_ms,
+              "peak_memory_gb": peak / 1e9, "peak_over_weights_gb": (peak - base) / 1e9})
+    rec["serving_C"] = r
+    del pred, dev_in, out, pm
+
+    # 7. the command line: each flag value trains 2 steps, then infers (stage
+    # 1: --test) from that checkpoint
+    t_cli = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="longtail_cli_")
+    root = os.path.join(work, "fscd147")
+    logs = os.path.join(out_dir, "longtail")
+    os.makedirs(logs, exist_ok=True)
+    make_synthetic_fscd147(root, **LONGTAIL_TREE)
+    forwards = [0]
+
+    def count_forward(module, args, output):
+        if isinstance(module, CountingDetr):
+            forwards[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
+    os.environ["COUNTDETR_PALLAS_VARIANT"] = "v3"
+    rec["cli"] = {"tree": LONGTAIL_TREE}
+    try:
+        for name, (config, argv, infer) in LONGTAIL_CLI.items():
+            out = os.path.join(work, name)
+            for mode in ("train", infer):
+                extra = (["--epochs", "1", "--max_steps", "2"] if mode == "train" else
+                         [mode, "--checkpoint_path", os.path.join(out, "checkpoints")])
+                args = cli.get_args_parser().parse_args(
+                    ["--data_path", root, "--output_dir", out] + CLI_FLAGS + argv + extra)
+                torch.cuda.synchronize()
+                reset_launches(*kernels)
+                forwards[0] = 0
+                t = time.perf_counter()
+                log = os.path.join(logs, f"{name}_{mode.strip('-')}.txt")
+                with open(log, "w") as f, contextlib.redirect_stdout(f):
+                    result = cli.main(args)
+                torch.cuda.synchronize()
+                n = forwards[0]
+                matching = mode == "train" and config != "B"
+                r = check_launches(f"cli_{name}_{mode.strip('-')}",
+                                   want(LONGTAIL_PER_FORWARD[config], n, n if matching else 0))
+                r.update({"wall_s": time.perf_counter() - t, "forwards": n,
+                          "files": sorted(os.listdir(out))})
+                if mode == "train":
+                    with open(os.path.join(out, "log.txt")) as f:
+                        lines = [json.loads(x) for x in f]
+                    ok = (result.scheduler.last_epoch == 2 and len(lines) == 1 and all(
+                        np.isfinite(v) for v in lines[0].values() if isinstance(v, float)))
+                    r["loss"] = lines[0].get("loss") if lines else None
+                elif infer == "--infer":
+                    ok = all(np.isfinite(v) for m in result.values() for v in m.values())
+                    r["metrics_test"] = result["test"]
+                else:
+                    ok = os.path.exists(os.path.join(out, "pseudo_test_anchor_detr_v3.json"))
+                if not ok:
+                    failures.append(("longtail cli", name, mode, r))
+                rec["cli"][f"{name}_{mode.strip('-')}"] = r
+    finally:
+        hook.remove()
+        os.environ.pop("COUNTDETR_PALLAS_VARIANT", None)
+        shutil.rmtree(work, ignore_errors=True)
+    rec["cli_s"] = time.perf_counter() - t_cli
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return paths, [c for c in rec["mha"] if c["dtype"] == "bfloat16"]
+
+
 def convergence_phase(smi, failures, out_dir):
     """tests/torch_convergence_run.py on the card in bfloat16: the JAX
     recipe's two stages on synthetic data, held to the JAX held-out bounds."""
@@ -1831,6 +2237,8 @@ def main(argv=None) -> int:
             cli_phase(smi, failures, args.out)
         if "defaults" in args.only:
             defaults_phase(np.random.default_rng(8), smi, failures)
+        if "longtail" in args.only:
+            longtail_phase(g, smi, failures, args.out)
         if "convergence" in args.only:
             convergence_phase(smi, failures, args.out)
         if failures:
@@ -1860,14 +2268,15 @@ def main(argv=None) -> int:
     edges = edge_cases(rcda_kernel, mha_kernel, g)
     # the learned prior's 900 queries (the decoder's RCDA and MHA at serving
     # B=32, MHA at training B=8), drawn after the cases above. The cases above
-    # must keep their draw position: the bf16 edge tolerance is absolute and
-    # one bf16 ulp exceeds it at outputs >= 2 (ROADMAP Queue 3), so new
-    # inputs for them can trip it. Add new cases here, after them.
+    # keep their draw position, so their numbers stay comparable from run to
+    # run (the RCDA tolerance is absolute, and one bf16 ulp exceeds it at
+    # outputs >= 2: ROADMAP Queue 3). Add new cases after them; the longtail
+    # phase draws its own last of all.
     rcda_cases += [rcda_case(rcda_kernel, g, torch.bfloat16, 900)]
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
     torch.cuda.synchronize()
-    failures = [("edge", c) for c in edges if not c["max_abs_err"] <= c["tol"]]
+    failures = [("edge", c) for c in edges if not in_tol(c)]
     failures += [("auction", c["case"]) for c in auctions if not c["identical"]]
     failures += [("auction", c["case"], "cluster", x["cluster"]) for c in auctions
                  for x in c["sweep"] if not x["identical"]]
@@ -1875,10 +2284,10 @@ def main(argv=None) -> int:
     if not capped["unassigned"]:
         failures.append(("auction", "the iteration cap left no -1", capped["case"]))
     for c in rcda_cases + rank1_cases + mha_cases:
-        if not (c["max_abs_err"] <= c["tol"] and c["finite"]):
+        if not (in_tol(c) and c["finite"]):
             failures.append(("kernel", c["shape"], c["dtype"], c["max_abs_err"]))
     for c in mha_cases:
-        if not (c["dead_row_finite"] and c["dead_row_uniform_err"] <= c["tol"]):
+        if not (c["dead_row_finite"] and c["dead_row_within_tol"]):
             failures.append(("mha dead row", c["dtype"], c["dead_row_uniform_err"]))
     emit({"phase": "kernels", "rcda": rcda_cases, "rcda_rank1": rank1_cases, "mha": mha_cases,
           "auction": auctions, "edge": edges})
@@ -1974,6 +2383,13 @@ def main(argv=None) -> int:
                 for k in ("rcda", "rcda_rank1", "mha", "auction")}
     failures += [("cli path launched no", k) for k, n in cli_main.items() if n == 0]
 
+    # 11. AnchorDETR's remaining model options: standard attention, three
+    # levels, the mask head (its kernel cases draw from g last of all)
+    longtail_launches, longtail_mha = longtail_phase(g, smi, failures, args.out)
+    longtail_main = {k: sum(c[k] for c in longtail_launches.values())
+                     for k in ("rcda", "rcda_rank1", "mha", "auction")}
+    failures += [("longtail path launched no", k) for k, n in longtail_main.items() if n == 0]
+
     # pseudo_label: one timed run of each variant together (the phase line
     # has them apart)
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
@@ -1983,6 +2399,7 @@ def main(argv=None) -> int:
     paths.update({f"defaults_{name}": counts_ for name, counts_ in defaults_launches.items()})
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
     paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})
+    paths.update({f"longtail_{name}": counts_ for name, counts_ in longtail_launches.items()})
 
     def summary(key, replaces, source, cases, main_case, main_count):
         return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -2015,7 +2432,7 @@ def main(argv=None) -> int:
                 pick(rank1_cases, B=8, L=1008), cli_main["rcda_rank1"]),
         summary("mha", "countdetr_tpu/ops/pallas/mha_kernel.py:64 fused_mha",
                 "countdetr_tpu_torch/csrc/mha.cu",
-                [c for c in mha_cases if c["dtype"] == "bfloat16"],
+                [c for c in mha_cases if c["dtype"] == "bfloat16"] + longtail_mha,
                 pick(mha_cases, B=8, S=5600), cli_main["mha"]),
         summary("auction", "countdetr_tpu/ops/pallas/auction_kernel.py:130 auction_assign",
                 "countdetr_tpu_torch/csrc/auction.cu",
@@ -2065,8 +2482,8 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
         rec["mha"] += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
         cases += rec["mha"][-2:]
     emit(rec)
-    bad = [c for c in cases + rec["edge"] if not c["max_abs_err"] <= c["tol"]]
-    bad += [c for c in rec.get("mha", []) if not c["dead_row_uniform_err"] <= c["tol"]]
+    bad = [c for c in cases + rec["edge"] if not in_tol(c)]
+    bad += [c for c in rec.get("mha", []) if not c["dead_row_within_tol"]]
     bad += [c for c in rec.get("auction", [])
             if not (c["identical"] and all(x["identical"] for x in c["sweep"]))]
     if bad:

@@ -20,10 +20,13 @@ of 300 positions x 3 patterns (900 queries). Every prior runs in either
 stage; the sampled prior reads --num_sample_points density-drawn points a
 FSCD-147 image. Runs on ``--device`` (default cuda; a missing card raises,
 nothing falls back). The model's RCDA core is COUNTDETR_PALLAS_VARIANT
-("v3", the default, or "rank1"), the switch the JAX package reads. Flag
-values the port's model does not have yet (--masks, --attention_type
-nn.MultiheadAttention, --num_feature_levels > 1) exit with the ROADMAP.md
-item that adds them.
+("v3", the default, or "rank1"), the switch the JAX package reads. Every
+model flag value of the JAX CLI runs: --attention_type
+nn.MultiheadAttention, --num_feature_levels 3 (stage 1) and --masks too.
+The combinations the JAX model cannot build exit with the reason
+(``ModelConfig.check_options``): --num_feature_levels other than 1 or 3,
+levels with stage 2's exemplar aggregation, with --masks, with standard
+attention or without --dilation.
 """
 
 from __future__ import annotations
@@ -43,9 +46,6 @@ from countdetr_tpu_torch.models.anchor_detr import build_model
 from countdetr_tpu_torch.train import checkpoints as ckpt
 from countdetr_tpu_torch.train import engine
 from countdetr_tpu_torch.train.train_step import Trainer
-
-LONG_TAIL = "ROADMAP.md, Queue 1 item 6 (long tail)"
-
 
 def get_args_parser():
     p = argparse.ArgumentParser("Counting-DETR on CUDA", add_help=False)
@@ -266,19 +266,13 @@ def config_from_args(args) -> Config:
 
 
 def refuse_unsupported(args, cfg: Config):
-    """SystemExit for a flag value the port's model does not have yet,
-    naming the ROADMAP.md item that adds it."""
+    """SystemExit for a combination of model flags the JAX model cannot
+    build, with the reason, and for a backbone other than ResNet-50."""
     m = cfg.model
-    missing = []
-    if m.masks:
-        missing.append(("--masks", "the mask head"))
-    if m.attention_type != "RCDA":
-        missing.append(("--attention_type nn.MultiheadAttention", 'attention_type="MHA"'))
-    if m.num_feature_levels != 1:
-        missing.append((f"--num_feature_levels {m.num_feature_levels}", "multi-level"))
-    if missing:
-        raise SystemExit("not in the port yet: " + "; ".join(
-            f"{flag} needs {what} ({LONG_TAIL})" for flag, what in missing))
+    try:
+        m.check_options()
+    except ValueError as e:
+        raise SystemExit(f"model flags: {e}") from None
     if m.backbone != "resnet50":
         raise SystemExit(f"--backbone {m.backbone}: the port, like the JAX package, builds "
                          f"ResNet-50 only")

@@ -14,6 +14,7 @@ import math
 from typing import Optional, Tuple
 
 RCDA_VARIANTS = ("v3", "rank1")
+ATTENTION_TYPES = ("RCDA", "MHA")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +35,7 @@ class ModelConfig:
     dim_feedforward: int = 1024
     dropout: float = 0.0
     activation: str = "relu"
-    attention_type: str = "RCDA"
+    attention_type: str = "RCDA"  # "RCDA" | "MHA" (standard attention)
 
     # queries
     num_query_position: int = 300
@@ -42,7 +43,7 @@ class ModelConfig:
     spatial_prior: str = "learned"  # learned | grid | defined | sampled
 
     num_classes: int = 2
-    masks: bool = False
+    masks: bool = False  # the mask head (DETRsegm's, models/segmentation.py)
 
     # stage switches
     stage: int = 1
@@ -63,6 +64,34 @@ class ModelConfig:
         if self.rcda_variant not in RCDA_VARIANTS:
             raise ValueError(f"rcda_variant must be one of {RCDA_VARIANTS}, "
                              f"got {self.rcda_variant!r}")
+        if self.attention_type not in ATTENTION_TYPES:
+            raise ValueError(f"attention_type must be one of {ATTENTION_TYPES}, "
+                             f"got {self.attention_type!r}")
+
+    def check_options(self):
+        """ValueError for a combination of model options the JAX model
+        cannot build (countdetr_tpu/models/anchor_detr.py:199-201, :274;
+        countdetr_tpu/models/transformer.py:384-386, :412-425). The model
+        checks its config; a config alone may hold any combination (the
+        CLI's --evaluate_predictions reads no model)."""
+        levels = self.num_feature_levels
+        if levels not in (1, 3):
+            raise ValueError(f"num_feature_levels must be 1 or 3 (the backbone gives "
+                             f"C3, C4, C5), got {levels}")
+        if levels > 1:
+            if self.exemplar_aggregation:
+                raise ValueError("num_feature_levels > 1 excludes exemplar aggregation "
+                                 "(defined on the single C5 level: stage 2)")
+            if self.masks:
+                raise ValueError("masks exclude num_feature_levels > 1 (the mask head "
+                                 "reads one level)")
+            if self.attention_type != "RCDA":
+                raise ValueError("num_feature_levels > 1 takes RCDA attention only (the JAX "
+                                 "transformer's 2-D position embedding is per image, not "
+                                 "per level)")
+            if not self.dilation:
+                raise ValueError("num_feature_levels > 1 needs the dilated C5 (DC5): "
+                                 "C3, C4 and C5 meet at stride 16")
 
     @property
     def num_queries(self) -> int:

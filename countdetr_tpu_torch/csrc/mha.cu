@@ -20,9 +20,14 @@
 //
 // Numerics against the TPU kernel: in bf16 the TPU kernel rounds the
 // normalised p to bf16 before the PV product (mha_kernel.py:57); this
-// kernel rounds the unnormalised exp(s - m_running) and divides the f32
-// sum at the end, and takes exp as 2^(s log2(e) + bias log2(e) - m). Held
-// against mha_core_plain at 1e-2 (bf16) and 1e-4 (f32).
+// kernel does too where a row's keys fit one 64-key tile, and past that
+// rounds the unnormalised exp(s - m_running) and divides the f32 sum at
+// the end, and takes exp as 2^(s log2(e) + bias log2(e) - m). Held
+// against mha_core_plain at max(1e-2, 1 bf16 ulp of the output) (bf16) and
+// 1e-4 (f32).
+//
+// Grid: (query tiles x batch, heads); the batch rides on gridDim.x, so
+// any batch fits (the level layer runs one batch row per pixel).
 //
 // What bounds it on this card: at d = 32 a score costs 128 tensor-core
 // operations but one exponential, and the SFU does 16 ex2 a clock per SM
@@ -89,7 +94,7 @@ template <int D>
 __global__ void __launch_bounds__(kBf16Threads)
 mha_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, int L, int S, int E) {
+                 __nv_bfloat16* __restrict__ out, int L, int S, int E, int tiles) {
   using Lay = Bf16Layout<D>;
   constexpr int kRow = Swizzle<D>::kRowBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -100,7 +105,8 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   uint64_t* q_full = empty + kStages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int l0 = blockIdx.x * kBQ, head = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x = b * tiles + query tile: any batch fits gridDim.x
+  const int b = blockIdx.x / tiles, l0 = (blockIdx.x % tiles) * kBQ, head = blockIdx.y;
   const int nt = (S + kBK - 1) / kBK;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -182,18 +188,33 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
       m[r] = mx[r];
       l[r] *= alpha[r];
     }
-    // p = 2^(x - m): summed unrounded, packed to bf16 as the A operand
+    // p = 2^(x - m), summed unrounded
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = ex2(s[4 * j + e] - mx[e >> 1]);
+        l[e >> 1] += s[4 * j + e];
+      }
+    // a row whose keys fit one tile (the level layer's 3, the short point
+    // tiers) is normalised before its bf16 rounding, as the plain version
+    // and the TPU kernel round it; longer rows divide at the end
+    if (nt == 1) {
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        inv[r] = 1.f / l[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= inv[(i >> 1) & 1];
+    }
+    // packed to bf16 as the A operand
     uint32_t pa[kBK / 16][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = ex2(s[4 * j + e] - mx[e >> 1]);
-        l[e >> 1] += p[e];
-      }
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      pa[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
     }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
@@ -212,7 +233,8 @@ mha_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     mbar_arrive(&empty[st]);
   }
 
-  const float z0 = quad_sum(l[0]), z1 = quad_sum(l[1]);
+  // (one tile: p was normalised already)
+  const float z0 = nt == 1 ? 1.f : quad_sum(l[0]), z1 = nt == 1 ? 1.f : quad_sum(l[1]);
   const int r0 = l0 + warp * 16 + g, r1 = r0 + 8;
   __nv_bfloat16* ob = out + static_cast<size_t>(b) * L * E + head * D;
 #pragma unroll
@@ -250,7 +272,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ bias,
-               float* __restrict__ out, int L, int S, int E) {
+               float* __restrict__ out, int L, int S, int E, int tiles) {
   constexpr int P = D + 1;
   constexpr int CG = D / 4;             // output channel groups of 4
   constexpr int QG = kThreads / CG;     // output query groups
@@ -264,9 +286,9 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float s_alpha[kTQ], s_m[kTQ], s_l[kTQ];
 
   const int tid = threadIdx.x;
-  const int l0 = blockIdx.x * kTQ;
+  const size_t b = blockIdx.x / tiles;  // blockIdx.x = b * tiles + query tile
+  const int l0 = (blockIdx.x % tiles) * kTQ;
   const int hoff = blockIdx.y * D;
-  const size_t b = blockIdx.z;
 
   for (int i = tid; i < kTQ * D; i += kThreads) {
     const int l = i / D, j = i % D;
@@ -370,11 +392,16 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
            void* out, int B, int L, int S, int E, int num_heads, cudaStream_t stream) {
+  // the batch rides on gridDim.x with the query tiles (gridDim.z stops at
+  // 65535; the level layer's batch is B*H*W pixels)
   if (dtype == 0) {
-    const dim3 grid((L + kTQ - 1) / kTQ, num_heads, B);
+    const int tiles = (L + kTQ - 1) / kTQ;
+    if (static_cast<long long>(tiles) * B > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    const dim3 grid(tiles * B, num_heads);
     mha_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias, static_cast<float*>(out), L, S, E);
+        static_cast<const float*>(v), bias, static_cast<float*>(out), L, S, E, tiles);
     return static_cast<int>(cudaGetLastError());
   }
   // (E, L|S, B) views, boxes of {D, 64, 1} at column head * D
@@ -392,9 +419,12 @@ int launch(int dtype, const void* q, const void* k, const void* v, const float* 
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + kBQ - 1) / kBQ, num_heads, B);
+  const int tiles = (L + kBQ - 1) / kBQ;
+  if (static_cast<long long>(tiles) * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(tiles * B, num_heads);
   kern<<<grid, kBf16Threads, smem, stream>>>(map_q, map_k, map_v, bias,
-                                             static_cast<__nv_bfloat16*>(out), L, S, E);
+                                             static_cast<__nv_bfloat16*>(out), L, S, E, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,10 +19,18 @@ num_query_position points, "grid" a fixed grid, "defined" and "sampled" the
 points passed with the batch (invalid ones are masked in the decoder's
 self-attention).
 
+AnchorDETR's other options (countdetr_tpu/models/anchor_detr.py:186-293):
+``attention_type="MHA"`` (standard attention in place of RCDA, in the
+transformer); ``num_feature_levels=3`` in stage 1 (C3, C4 and C5 each
+projected to hidden_dim, C3 by a 3x3 stride-2 conv, so the three meet at
+C5's stride 16); ``masks`` (DETRsegm's mask head over the last decoder
+output and the encoder memory, with the C4, C3, C2 skips: ``pred_masks``
+(B, L, H/4, W/4) float32 logits, models/segmentation.py).
+
 Module names follow the reference torch model (``backbone.body.*``,
-``input_proj.0.{0,1}.*`` / ``aggr_input_proj.0.{0,1}.*``,
-``transformer.*``), so a state_dict maps to and from the JAX package's
-params by name (weights.py).
+``input_proj.{lv}.{0,1}.*`` / ``aggr_input_proj.0.{0,1}.*``,
+``transformer.*``, ``bbox_attention.*``, ``mask_head.*``), so a state_dict
+maps to and from the JAX package's params by name (weights.py).
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from torch import nn
 from countdetr_tpu_torch.config import ModelConfig
 from countdetr_tpu_torch.models.resnet import (
     Conv, ResNetBackbone, StemConv, downsample_mask,
+)
+from countdetr_tpu_torch.models.segmentation import (
+    MaskHeadSmallConv, MHAttentionMap, mask_head_forward,
 )
 from countdetr_tpu_torch.models.transformer import Transformer, init_transformer_
 from countdetr_tpu_torch.ops.posemb import grid_reference_points
@@ -100,16 +111,21 @@ class MaskedGroupNorm(nn.Module):
 
 
 class InputProj(nn.Sequential):
-    """1x1 conv + masked GroupNorm(32) (reference anchor_detr.py:49-73),
-    as the reference's Sequential(conv, norm). NHWC in; the conv runs in
-    float32 (the JAX package promotes it to its float32 parameters)."""
+    """Conv + masked GroupNorm(32) (reference anchor_detr.py:49-73), as the
+    reference's Sequential(conv, norm): 1x1, or the 3x3 stride-2 conv of
+    the lowest of three levels. NHWC in; the conv runs in float32 (the JAX
+    package promotes it to its float32 parameters)."""
 
-    def __init__(self, cin: int, cout: int):
-        super().__init__(nn.Conv2d(cin, cout, 1), MaskedGroupNorm(cout))
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
+        super().__init__(nn.Conv2d(cin, cout, kernel, stride, kernel // 2),
+                         MaskedGroupNorm(cout))
 
     def forward(self, x, valid=None):
         conv, norm = self[0], self[1]
-        x = F.linear(x.float(), conv.weight.flatten(1), conv.bias)
+        if conv.kernel_size == (1, 1) and conv.stride == (1, 1):
+            x = F.linear(x.float(), conv.weight.flatten(1), conv.bias)
+        else:
+            x = conv(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return norm(x, valid)
 
 
@@ -149,7 +165,10 @@ class CountingDetr(nn.Module):
         is deterministic, as the JAX package without a 'dropout' rng);
       aux_outputs: stage 2, whether to return the earlier decoder layers'
         {pred_logits, pred_boxes} (default: ``cfg.aux_loss``); False spares
-        a caller that does not read them the heads of those layers.
+        a caller that does not read them the heads of those layers;
+      masks: with ``cfg.masks``, whether to run the mask head and return
+        ``pred_masks`` (default True); False spares a caller that does not
+        read them the head, whose activations grow with B * L.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -161,23 +180,31 @@ class CountingDetr(nn.Module):
                 cfg.with_variance_head != (cfg.stage == 2):
             unsupported.append("exemplar aggregation and the variance head in stage 2 "
                                "only")
-        if cfg.num_feature_levels != 1 or cfg.masks or cfg.attention_type != "RCDA":
-            unsupported.append("one feature level, RCDA attention, no mask head")
         if cfg.backbone != "resnet50" or cfg.activation != "relu":
             unsupported.append("ResNet-50 and relu")
         if unsupported:
             raise NotImplementedError("the port supports only " + "; ".join(unsupported))
         if cfg.spatial_prior not in PRIORS:
             raise ValueError(f"unknown spatial prior {cfg.spatial_prior!r}")
+        cfg.check_options()
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
-        self.backbone = nn.ModuleDict(
-            {"body": ResNetBackbone(dilation=cfg.dilation, compute_dtype=dt)})
-        if cfg.stage == 1:
-            self.input_proj = nn.ModuleList([InputProj(2048, cfg.hidden_dim)])
+        C = cfg.hidden_dim
+        multi_level = cfg.num_feature_levels > 1
+        self.backbone = nn.ModuleDict({"body": ResNetBackbone(
+            dilation=cfg.dilation, compute_dtype=dt,
+            return_interm=multi_level or cfg.masks, return_c2=cfg.masks)})
+        if multi_level:  # C3 (3x3 stride 2), C4, C5
+            self.input_proj = nn.ModuleList([InputProj(512, C, 3, 2), InputProj(1024, C),
+                                             InputProj(2048, C)])
+        elif cfg.stage == 1:
+            self.input_proj = nn.ModuleList([InputProj(2048, C)])
         else:
-            self.aggr_input_proj = nn.ModuleList([InputProj(2 * 2048, cfg.hidden_dim)])
+            self.aggr_input_proj = nn.ModuleList([InputProj(2 * 2048, C)])
         self.transformer = Transformer(cfg)
+        if cfg.masks:
+            self.bbox_attention = MHAttentionMap(C, C, cfg.nheads)
+            self.mask_head = MaskHeadSmallConv(C + cfg.nheads, (1024, 512, 256), C)
 
     def reference_points(self, B: int, device, points=None, points_valid=None):
         """The prior's (reference_points (B, P, 2), query_valid (B, P) or None)."""
@@ -193,7 +220,7 @@ class CountingDetr(nn.Module):
         return points, points_valid
 
     def forward(self, images, pad_mask, *prior, generator: Optional[torch.Generator] = None,
-                aux_outputs: Optional[bool] = None):
+                aux_outputs: Optional[bool] = None, masks: bool = True):
         g = generator if self.training else None
         if images.dtype == torch.uint8:
             images = normalize_uint8(images)
@@ -202,60 +229,77 @@ class CountingDetr(nn.Module):
             packed = images.shape[-1] == 12
             pm = pack_mask_s2d(pad_mask) if packed else pad_mask[..., None]
             images = images.masked_fill(pm, 0.0)
-        feat = self.backbone["body"](images, pad_mask)
+        feats = self.backbone["body"](images, pad_mask)
+        feats = feats if isinstance(feats, tuple) else (feats,)
+        feat = feats[-1]
         h, w = feat.shape[1], feat.shape[2]
         fmask = downsample_mask(pad_mask, h, w)
         B = images.shape[0]
         if self.cfg.stage == 1:
             points, points_valid = (tuple(prior) + (None, None))[:2]
             ref, query_valid = self.reference_points(B, images.device, points, points_valid)
-            src = self.input_proj[0](feat, ~fmask)
+            if self.cfg.num_feature_levels > 1:  # (B, l, h, w, C)
+                src = torch.stack([proj(f, ~fmask) for proj, f in zip(self.input_proj, feats)],
+                                  dim=1)
+            else:
+                src = self.input_proj[0](feat, ~fmask)
             tr = self.transformer(src, fmask, ref, query_valid, generator=g)
-            return {
+            out = {
                 "pred_logits": tr["cls"],
                 "pred_points": tr["coord"][..., :2],
                 "pred_wh": tr["coord"][..., 2:],
             }
-        exemplar_boxes, points, points_valid = (tuple(prior) + (None, None))[:3]
-        ref, query_valid = self.reference_points(B, images.device, points, points_valid)
-        feat = exemplar_aggregate(feat, exemplar_boxes)
-        src = self.aggr_input_proj[0](feat, ~fmask)
-        aux = self.cfg.aux_loss if aux_outputs is None else aux_outputs
-        tr = self.transformer(src, fmask, ref, query_valid, generator=g, all_layers=aux)
-        if not aux:
-            return {
-                "pred_logits": tr["cls"],
-                "pred_boxes": tr["coord"],
-                "pred_vars": tr["var"],
+        else:
+            exemplar_boxes, points, points_valid = (tuple(prior) + (None, None))[:3]
+            ref, query_valid = self.reference_points(B, images.device, points, points_valid)
+            src = self.aggr_input_proj[0](exemplar_aggregate(feat, exemplar_boxes), ~fmask)
+            aux = self.cfg.aux_loss if aux_outputs is None else aux_outputs
+            tr = self.transformer(src, fmask, ref, query_valid, generator=g, all_layers=aux)
+            last = (lambda x: x[-1]) if aux else (lambda x: x)
+            out = {
+                "pred_logits": last(tr["cls"]),
+                "pred_boxes": last(tr["coord"]),
+                "pred_vars": last(tr["var"]),
                 "reference_points": tr["reference_points"],
             }
-        cls, coord = tr["cls"], tr["coord"]
-        return {
-            "pred_logits": cls[-1],
-            "pred_boxes": coord[-1],
-            "pred_vars": tr["var"][-1],
-            "reference_points": tr["reference_points"],
-            "aux_outputs": [{"pred_logits": cls[i], "pred_boxes": coord[i]}
-                            for i in range(cls.shape[0] - 1)],
-        }
+            if aux:
+                out["aux_outputs"] = [{"pred_logits": tr["cls"][i], "pred_boxes": tr["coord"][i]}
+                                      for i in range(tr["cls"].shape[0] - 1)]
+        if self.cfg.masks and masks:  # skips C4, C3, C2 of (C2, C3, C4, C5)
+            out["pred_masks"] = mask_head_forward(self.bbox_attention, self.mask_head, tr["hs"],
+                                                  tr["memory"], fmask, feats[-2::-1])
+        return out
 
 
 @torch.no_grad()
 def init_weights_(model: CountingDetr, g: torch.Generator):
     """Random initialisation from a seeded generator, following the JAX
     package's initialisers: lecun-normal backbone convs, identity frozen BN,
-    xavier-uniform input projection, the transformer's own scheme."""
+    xavier-uniform input projections (the fans of a 3x3 conv include its
+    kernel area), the transformer's own scheme, and flax's defaults in the
+    mask head (lecun-normal weights, zero biases, unit GroupNorm scales)."""
+    def lecun_normal_(weight):
+        weight.copy_(torch.randn(weight.shape, generator=g) / math.sqrt(weight[0].numel()))
+
     for m in model.backbone.modules():
         if isinstance(m, (Conv, StemConv)):
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.randn(m.weight.shape, generator=g) / math.sqrt(fan_in))
-    proj = model.input_proj if model.cfg.stage == 1 else model.aggr_input_proj
-    conv = proj[0][0]
-    cout, cin = conv.weight.shape[:2]
-    limit = math.sqrt(6.0 / (cin + cout))
-    conv.weight.copy_((torch.rand(conv.weight.shape, generator=g) * 2 - 1) * limit)
-    conv.bias.zero_()
+            lecun_normal_(m.weight)
+    projs = model.input_proj if hasattr(model, "input_proj") else model.aggr_input_proj
+    for proj in projs:
+        conv = proj[0]
+        cout, cin, kh, kw = conv.weight.shape
+        limit = math.sqrt(6.0 / ((cin + cout) * kh * kw))
+        conv.weight.copy_((torch.rand(conv.weight.shape, generator=g) * 2 - 1) * limit)
+        conv.bias.zero_()
     init_transformer_(model.transformer, g)
+    if model.cfg.masks:
+        for m in (*model.bbox_attention.modules(), *model.mask_head.modules()):
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                lecun_normal_(m.weight)
+                m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
 
 
 def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,

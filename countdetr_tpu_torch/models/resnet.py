@@ -116,12 +116,19 @@ class ResNetBackbone(nn.Module):
 
     forward(x, pad_mask): x is (B, H, W, 3) or the space-to-depth packed
     (B, H/2, W/2, 12); pad_mask (B, H, W) bool at image resolution, True on
-    padding, or None. Returns C5 as (B, h, w, 2048) NHWC in compute_dtype.
+    padding, or None. Returns C5 as (B, h, w, 2048) NHWC in compute_dtype;
+    with ``return_interm`` the tuple (C3, C4, C5) (multi-level features),
+    with ``return_c2`` too (C2, C3, C4, C5) (the mask head's skips), as the
+    JAX backbone returns them. Each level is re-zeroed on its own padding
+    (the valid mask at its resolution) before the convolutions that read it.
     """
 
-    def __init__(self, dilation: bool = True, compute_dtype: torch.dtype = torch.float32):
+    def __init__(self, dilation: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 return_interm: bool = False, return_c2: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.return_interm = return_interm
+        self.return_c2 = return_c2
         self.conv1 = StemConv()
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
@@ -152,10 +159,14 @@ class ResNetBackbone(nn.Module):
         # relu output >= 0, so re-zeroed padding never wins the max
         x = apply_valid(x, valid_at(x.shape[2], x.shape[3]))
         x = F.max_pool2d(x, 3, 2, 1)
+        feats = []
         for stage in range(4):
             for block in getattr(self, f"layer{stage + 1}"):
                 x = block(x, valid_at(x.shape[2], x.shape[3]))
-        return x.permute(0, 2, 3, 1)
+            feats.append(x.permute(0, 2, 3, 1))
+        if not self.return_interm:
+            return feats[-1]
+        return tuple(feats) if self.return_c2 else tuple(feats[1:])
 
 
 def downsample_mask(pad_mask: torch.Tensor, h: int, w: int) -> torch.Tensor:

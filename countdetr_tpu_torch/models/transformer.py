@@ -1,8 +1,18 @@
-"""AnchorDETR transformer, single feature level, RCDA attention
-(countdetr_tpu/models/transformer.py; reference models/transformer.py).
+"""AnchorDETR transformer (countdetr_tpu/models/transformer.py; reference
+models/transformer.py): RCDA or standard ("MHA") attention, one feature
+level or three.
 
 Layouts are the JAX package's: the encoder works on the (B, H, W, C) grid,
-the decoder on (B, L, C) queries. Module names are the reference torch
+the decoder on (B, L, C) queries. Under ``attention_type="MHA"`` the
+encoder's self-attention and the decoder's cross-attention are standard
+attention over the H*W pixels, with the 2-D embedding of each pixel's
+(x, y) as its position. With three feature levels (C3, C4, C5 projected to
+one grid) the levels fold into the batch level-major, (l*B, H, W, C); half
+the encoder layers are each followed by a level layer, attention across
+the levels of each pixel; the decoder's cross-attention runs on the
+queries tiled level-major, and ``level_fc`` merges the levels of each
+query from the c-major, level-fastest flattening (c*l + level), the
+order in which the reference's weights import. Module names are the reference torch
 model's (``encoder_layers.{i}.self_attn.in_proj_weight``, ``ffn.norm2``,
 ``cls_embed.0`` ...). The shared prediction heads are one module each,
 held in a one-element ModuleList so their keys keep the reference's ``.0``.
@@ -145,59 +155,121 @@ class FFN(nn.Module):
         return self.norm2(x + dropout(self.linear2(h), self.dropout, generator))
 
 
-class EncoderLayer(nn.Module):
-    """RCDA self-attention over the feature grid (reference transformer.py:217-278)."""
+def attention(attention_type, d_model, num_heads, variant):
+    if attention_type == "RCDA":
+        return RCDAAttention(d_model, num_heads, variant)
+    return MHAttention(d_model, num_heads)
 
-    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0):
+
+def flat_grid(x):
+    """(B, H, W, C) -> (B, H*W, C); (B, H, W) -> (B, H*W)."""
+    return x.reshape(x.shape[0], x.shape[1] * x.shape[2], *x.shape[3:])
+
+
+class EncoderLayer(nn.Module):
+    """Self-attention over the feature grid: RCDA, or standard attention
+    over the H*W pixels (reference transformer.py:217-278)."""
+
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0,
+                 attention_type="RCDA"):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = RCDAAttention(d_model, num_heads, variant)
+        self.attention_type = attention_type
+        self.self_attn = attention(attention_type, d_model, num_heads, variant)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.ffn = FFN(d_model, d_ffn, dropout)
 
-    def forward(self, src, pad_mask, posemb_row, posemb_col, generator=None):
-        q_row = src + posemb_row[:, None, :, :]  # (B, H, W, C)
-        q_col = src + posemb_col[:, :, None, :]
-        src2 = self.self_attn(q_row, q_col, q_row, q_col, src, key_padding_mask=pad_mask)
+    def forward(self, src, pad_mask, posemb_row, posemb_col, posemb_2d=None, generator=None):
+        if self.attention_type == "RCDA":
+            q_row = src + posemb_row[:, None, :, :]  # (B, H, W, C)
+            q_col = src + posemb_col[:, :, None, :]
+            src2 = self.self_attn(q_row, q_col, q_row, q_col, src, key_padding_mask=pad_mask)
+        else:
+            q = flat_grid(src + posemb_2d)
+            src2 = self.self_attn(q, q, flat_grid(src),
+                                  key_padding_mask=flat_grid(pad_mask)).reshape(src.shape)
         src = self.norm1(src + dropout(src2, self.dropout, generator))
         return self.ffn(src, generator)
 
 
-class DecoderLayer(nn.Module):
-    """Query self-attention (MHA) + RCDA cross-attention
-    (reference transformer.py:315-407)."""
+class LevelEncoderLayer(nn.Module):
+    """Attention across the feature levels of each pixel, the level
+    embedding added to queries and keys (reference
+    TransformerEncoderLayerLevel, transformer.py:281-312)."""
 
-    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0):
+    def __init__(self, d_model, d_ffn, num_heads, dropout=0.0):
         super().__init__()
         self.dropout = dropout
+        self.self_attn_level = MHAttention(d_model, num_heads)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.ffn = FFN(d_model, d_ffn, dropout)
+
+    def forward(self, src, level_emb, generator=None):
+        # src (B, l, H, W, C), level_emb (l, C); one batch row a pixel
+        B, l, H, W, C = src.shape
+        x = src.permute(0, 2, 3, 1, 4).reshape(B * H * W, l, C)
+        qk = x + level_emb[None].to(x.dtype)
+        x2 = self.self_attn_level(qk, qk, x)
+        x = self.ffn(self.norm1(x + dropout(x2, self.dropout, generator)), generator)
+        return x.reshape(B, H, W, l, C).permute(0, 3, 1, 2, 4)
+
+
+class DecoderLayer(nn.Module):
+    """Query self-attention (MHA) + cross-attention over the grid, RCDA or
+    standard (reference transformer.py:315-407); with levels, the
+    cross-attention's per-level outputs merged by ``level_fc``."""
+
+    def __init__(self, d_model, d_ffn, num_heads, variant="v3", dropout=0.0,
+                 attention_type="RCDA", num_levels=1):
+        super().__init__()
+        self.dropout = dropout
+        self.attention_type = attention_type
+        self.num_levels = num_levels
         self.self_attn = MHAttention(d_model, num_heads)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
-        self.cross_attn = RCDAAttention(d_model, num_heads, variant)
+        self.cross_attn = attention(attention_type, d_model, num_heads, variant)
+        if num_levels > 1:
+            self.level_fc = Linear(d_model * num_levels, d_model)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.ffn = FFN(d_model, d_ffn, dropout)
 
     def forward(self, tgt, query_pos, query_pos_x, query_pos_y, src, pad_mask,
-                posemb_row, posemb_col, query_pad=None, generator=None):
+                posemb_row, posemb_col, query_pad=None, posemb_2d=None, generator=None):
+        B, L, C = tgt.shape
+        l = self.num_levels
         q = tgt + query_pos
         tgt2 = self.self_attn(q, q, tgt, key_padding_mask=query_pad)
         tgt = self.norm2(tgt + dropout(tgt2, self.dropout, generator))
-        k_row = src + posemb_row[:, None, :, :]
-        k_col = src + posemb_col[:, :, None, :]
-        tgt2 = self.cross_attn(tgt + query_pos_x, tgt + query_pos_y, k_row, k_col, src,
-                               key_padding_mask=pad_mask)
+
+        def tile_l(x):  # (B, L, C) -> (l*B, L, C), level-major like src
+            return x.repeat(l, 1, 1) if l > 1 else x
+
+        if self.attention_type == "RCDA":
+            k_row = src + posemb_row[:, None, :, :]
+            k_col = src + posemb_col[:, :, None, :]
+            tgt2 = self.cross_attn(tile_l(tgt + query_pos_x), tile_l(tgt + query_pos_y),
+                                   k_row, k_col, src, key_padding_mask=pad_mask)
+        else:
+            tgt2 = self.cross_attn(tile_l(tgt + query_pos), flat_grid(src + posemb_2d),
+                                   flat_grid(src),
+                                   key_padding_mask=flat_grid(pad_mask))
+        if l > 1:  # (l*B, L, C) -> (B, L, C*l), c-major with the level fastest
+            tgt2 = self.level_fc(tgt2.reshape(l, B, L, C).permute(1, 2, 3, 0).reshape(B, L, C * l))
         tgt = self.norm1(tgt + dropout(tgt2, self.dropout, generator))
         return self.ffn(tgt, generator)
 
 
 class Transformer(nn.Module):
-    """Encoder-decoder over one feature level with the shared heads.
+    """Encoder-decoder with the shared heads.
 
-    forward(src (B, H, W, C), pad_mask (B, H, W) bool, reference_points
-    (B, P, 2), query_valid (B, P) bool or None, generator, all_layers)
-    returns the last decoder layer's
+    forward(src (B, H, W, C), or (B, l, H, W, C) with l feature levels,
+    pad_mask (B, H, W) bool, reference_points (B, P, 2), query_valid (B, P)
+    bool or None, generator, all_layers) returns the last decoder layer's
       cls (B, L, num_classes), coord (B, L, 4) sigmoid cxcywh,
       var (B, L, 2) when the variance head is on, reference_points (B, L, 2),
-    all float32, with L = P * num_query_pattern; with ``all_layers`` every
+    all float32, with L = P * num_query_pattern, and for the mask head
+    hs (B, L, C), the last decoder layer's output, and memory (l*B, H, W,
+    C), the encoder's, in the compute dtype; with ``all_layers`` every
     decoder layer's cls, coord and var, stacked (D, B, L, .) as the JAX
     transformer returns them (the heads are one module each, applied after
     every layer). Queries that are not valid are masked as keys of the
@@ -214,13 +286,25 @@ class Transformer(nn.Module):
         C = cfg.hidden_dim
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.pattern = nn.Embedding(cfg.num_query_pattern, C)
-        self.adapt_pos1d = adapt_pos(C)
+        if cfg.attention_type == "RCDA":  # the 1-D embeddings feed RCDA only
+            self.adapt_pos1d = adapt_pos(C)
         self.adapt_pos2d = adapt_pos(C)
+        nlv = cfg.num_feature_levels
+        # with levels, half the encoder layers are level layers, each after
+        # a spatial one (reference transformer.py:51-58)
+        n_level = 0 if nlv == 1 else cfg.enc_layers // 2
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout)
-            for _ in range(cfg.enc_layers))
+            EncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout,
+                         cfg.attention_type)
+            for _ in range(cfg.enc_layers - n_level))
+        self.encoder_layers_level = nn.ModuleList(
+            LevelEncoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.dropout)
+            for _ in range(n_level))
+        if nlv > 1:
+            self.level_embed = nn.Embedding(nlv, C)
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout)
+            DecoderLayer(C, cfg.dim_feedforward, cfg.nheads, cfg.rcda_variant, cfg.dropout,
+                         cfg.attention_type, nlv)
             for _ in range(cfg.dec_layers))
         self.cls_embed = nn.ModuleList([Linear(C, cfg.num_classes)])
         self.bbox_embed = nn.ModuleList([MLP(C, C, 4, 3)])
@@ -236,7 +320,16 @@ class Transformer(nn.Module):
         cfg = self.cfg
         dt = self.compute_dtype
         src = src.to(dt)
-        B, H, W, C = src.shape
+        B = src.shape[0]
+        nlv = cfg.num_feature_levels
+        if src.dim() == 5:  # levels fold into the batch, level-major
+            if src.shape[1] != nlv:
+                raise ValueError(f"src has {src.shape[1]} levels, the config {nlv}")
+            src = src.transpose(0, 1).reshape(nlv * B, *src.shape[2:])
+            pad_mask = pad_mask.repeat(nlv, 1, 1)
+        elif nlv != 1:
+            raise ValueError(f"num_feature_levels={nlv} needs src (B, l, H, W, C)")
+        _, H, W, C = src.shape
         P = reference_points.shape[1]
         npat = cfg.num_query_pattern
         L = P * npat
@@ -247,15 +340,27 @@ class Transformer(nn.Module):
         query_pad = None if query_valid is None else ~query_valid.repeat(1, npat)
 
         pos_col, pos_row = mask2pos(pad_mask)
-        posemb_row = self.adapt_pos1d(pos2posemb1d(pos_row, C).to(dt))  # (B, W, C)
-        posemb_col = self.adapt_pos1d(pos2posemb1d(pos_col, C).to(dt))  # (B, H, C)
+        posemb_row = posemb_col = posemb_2d = query_pos_x = query_pos_y = None
+        if cfg.attention_type == "RCDA":
+            posemb_row = self.adapt_pos1d(pos2posemb1d(pos_row, C).to(dt))  # (l*B, W, C)
+            posemb_col = self.adapt_pos1d(pos2posemb1d(pos_col, C).to(dt))  # (l*B, H, C)
+        else:  # each pixel's (x, y), stacked in that order
+            n = pad_mask.shape[0]
+            pos2d = torch.stack([pos_row[:, None, :].expand(n, H, W),
+                                 pos_col[:, :, None].expand(n, H, W)], dim=-1)
+            posemb_2d = self.adapt_pos2d(pos2posemb2d(pos2d, C // 2).to(dt))  # (B, H, W, C)
         x = src
-        for layer in self.encoder_layers:
-            x = layer(x, pad_mask, posemb_row, posemb_col, generator)
+        for i, layer in enumerate(self.encoder_layers):
+            x = layer(x, pad_mask, posemb_row, posemb_col, posemb_2d, generator=generator)
+            if i < len(self.encoder_layers_level):
+                x5 = x.reshape(nlv, B, H, W, C).transpose(0, 1)
+                x5 = self.encoder_layers_level[i](x5, self.level_embed.weight, generator)
+                x = x5.transpose(0, 1).reshape(nlv * B, H, W, C)
 
         query_pos = self.adapt_pos2d(pos2posemb2d(ref, C // 2).to(dt))
-        query_pos_x = self.adapt_pos1d(pos2posemb1d(ref[..., 0], C).to(dt))
-        query_pos_y = self.adapt_pos1d(pos2posemb1d(ref[..., 1], C).to(dt))
+        if cfg.attention_type == "RCDA":
+            query_pos_x = self.adapt_pos1d(pos2posemb1d(ref[..., 0], C).to(dt))
+            query_pos_y = self.adapt_pos1d(pos2posemb1d(ref[..., 1], C).to(dt))
         ref_logit = inverse_sigmoid(ref)
 
         def heads(out):
@@ -270,7 +375,7 @@ class Transformer(nn.Module):
         out, per_layer = tgt, []
         for i, layer in enumerate(self.decoder_layers):
             out = layer(out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
-                        posemb_row, posemb_col, query_pad, generator)
+                        posemb_row, posemb_col, query_pad, posemb_2d, generator=generator)
             if all_layers or i == len(self.decoder_layers) - 1:
                 per_layer.append(heads(out))
         if all_layers:
@@ -278,6 +383,7 @@ class Transformer(nn.Module):
         else:
             result = per_layer[-1]
         result["reference_points"] = ref
+        result["hs"], result["memory"] = out, x
         return result
 
 
@@ -303,6 +409,8 @@ def init_transformer_(tr: Transformer, g: torch.Generator):
             m.in_proj_bias.zero_()
             m.out_proj.bias.zero_()
     tr.pattern.weight.copy_(torch.randn(tr.pattern.weight.shape, generator=g))
+    if tr.cfg.num_feature_levels > 1:
+        tr.level_embed.weight.copy_(torch.randn(tr.level_embed.weight.shape, generator=g))
     tr.cls_embed[0].bias.fill_(-math.log((1 - 0.01) / 0.01))
     last = tr.bbox_embed[0].layers[-1]
     last.weight.zero_()

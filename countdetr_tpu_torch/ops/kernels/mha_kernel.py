@@ -1,6 +1,9 @@
 """Multi-head attention core: a hand-written CUDA kernel and its plain version.
 
-``mha_core`` is what the decoder's self-attention calls. On a CUDA tensor
+``mha_core`` is what every standard attention calls: the decoder's
+self-attention, and under ``attention_type="MHA"`` the encoder's
+self-attention and the decoder's cross-attention over the H*W pixels,
+and the level layers (one batch row a pixel, 3 keys). On a CUDA tensor
 it launches the kernel in ``csrc/mha.cu`` (the counterpart of the JAX
 package's Pallas ``fused_mha``); on a CPU tensor it runs ``mha_core_plain``.
 There is no fallback between the two: a CUDA call that the kernel cannot
@@ -12,9 +15,12 @@ dtype. A row whose keys are all masked gets the uniform softmax.
 
 Key lengths: both kernels make one pass over the keys with an online
 softmax and keep no row of logits, so they take every key length (every
-stage-1 point tier included). The bfloat16 kernel rounds the unnormalised
-probabilities to bf16 and divides by their f32 sum at the end, where the
-plain version rounds the normalised ones: the two agree within 1e-2.
+stage-1 point tier included). Batches: any (the batch rides on the grid's
+x dimension with the query tiles). The bfloat16 kernel rounds the
+unnormalised probabilities to bf16 and divides by their f32 sum at the
+end, where the plain version rounds the normalised ones; a row whose keys
+fit one 64-key tile it normalises first too. Each output is within
+max(1e-2, one bf16 ulp of the plain output).
 
 Where a gradient is wanted, the core runs inside ``MHACore``, an autograd
 Function whose backward recomputes through the plain core (the JAX

@@ -75,7 +75,8 @@ class Predictor:
                 points: Optional[np.ndarray] = None,
                 points_valid: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """One forward of a packed batch on the predictor's device (the
-        points for the sampled and defined priors)."""
+        points for the sampled and defined priors); with the mask head, its
+        ``pred_masks`` (B, L, H/4, W/4) logits too."""
         dev = self.device
         arrays = [images, pad_mask, exemplar_boxes]
         if points is not None:

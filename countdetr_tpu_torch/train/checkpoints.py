@@ -228,6 +228,16 @@ _IGNORED_SUFFIXES = ("total_params", "total_ops")
 _SHARED_HEAD = re.compile(r"transformer\.(cls_embed|bbox_embed|bbox_variance)\.([1-9]\d*)\.")
 
 
+def _never_run(key: str, want) -> bool:
+    """Whether ``key`` is of a module the reference keeps but never runs in
+    the model whose state_dict keys are ``want``."""
+    if key.startswith("input_proj."):  # stage 2 projects the aggregated map
+        return any(n.startswith("aggr_input_proj.") for n in want)
+    if key.startswith("transformer.adapt_pos1d."):  # the 1-D embeddings feed RCDA only
+        return not any(n.startswith("transformer.adapt_pos1d.") for n in want)
+    return False
+
+
 def load_torch_checkpoint(path: str, model: torch.nn.Module,
                           skip_mismatched: bool = False) -> Dict[str, torch.Tensor]:
     """The state_dict for ``model`` from a reference .pth
@@ -235,8 +245,12 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module,
     DETRsegm's ``detr.`` dropped, the decoder heads' per-layer copies read
     from index 0, the folded wh bias taken out of the bbox head's last bias
     (the port adds it in the forward), stage 1's (1,) cls bias broadcast,
-    ``modify_pattern`` read as ``pattern``, and the stage-2 model's unused
-    plain ``input_proj`` dropped. Strict: an unknown or missing key raises
+    ``modify_pattern`` read as ``pattern``, and the modules the reference
+    keeps but never runs dropped: the stage-2 model's plain ``input_proj``
+    and, under standard attention, ``transformer.adapt_pos1d``. The levels'
+    ``input_proj.{lv}``, ``transformer.encoder_layers_level.*``,
+    ``level_fc`` and ``level_embed`` and DETRsegm's ``bbox_attention`` and
+    ``mask_head`` keep their names. Strict: an unknown or missing key raises
     KeyError, a shape mismatch ValueError unless ``skip_mismatched`` (then
     the model's own tensor is kept). The file pickles the reference's
     argparse Namespace, so it is read with ``weights_only=False``: load
@@ -247,9 +261,9 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module,
     out: Dict[str, torch.Tensor] = {}
     unknown = []
     for key, v in sd.items():
-        if key.endswith(_IGNORED_SUFFIXES) or _SHARED_HEAD.match(key):
-            continue
         k = key[len("detr."):] if key.startswith("detr.") else key
+        if key.endswith(_IGNORED_SUFFIXES) or _SHARED_HEAD.match(k):
+            continue
         k = k.replace("backbone.0.body.", "backbone.body.", 1)
         k = k.replace("transformer.modify_pattern.", "transformer.pattern.", 1)
         v = v.detach().to(torch.float32) if v.is_floating_point() else v.detach()
@@ -259,9 +273,8 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module,
                 and v.shape != want[k].shape and v.numel() == 1:
             v = v.expand(want[k].shape).clone()  # the stage-1 (1,)-bias quirk
         if k not in want:
-            if k.startswith("input_proj.") and any(n.startswith("aggr_input_proj.") for n in want):
-                continue  # the stage-2 reference keeps it but never runs it
-            unknown.append(key)
+            if not _never_run(k, want):
+                unknown.append(key)
             continue
         if v.shape != want[k].shape:
             if not skip_mismatched:

@@ -25,8 +25,10 @@ queues its work on the card and returns; the host reads the card only when
 the metric logger prints and when the NaN guard reads ``Trainer.bad_steps``
 (every ``min(10, log_every)`` steps and once at the end of the epoch).
 The inference loops take the model and run it under inference mode, one
-forward and one device-to-host copy per batch. The dataset of a loop is any
-indexable of sample dicts, as the Batcher takes it.
+forward and one device-to-host copy per batch. No loop reads masks (nor
+does the JAX engine), so their forwards skip a ``masks`` model's mask head.
+The dataset of a loop is any indexable of sample dicts, as the Batcher
+takes it.
 """
 
 from __future__ import annotations
@@ -130,7 +132,7 @@ def generate_pseudo_labels(
         for batch in prefetch(iter(batcher)):
             with torch.inference_mode():
                 out = model(*_inputs(model, batch, ("images", "pad_mask", "points",
-                                                    "points_valid")))
+                                                    "points_valid")), masks=False)
                 pred_wh = out["pred_wh"].float().cpu().numpy()  # (B, P, 2) normalized
             pts, pvalid = batch["points"], batch["points_valid"]
             for i, m in enumerate(batch["meta"]):
@@ -191,7 +193,7 @@ def infer_detections(
                     "spatial_prior='sampled' but the dataset emitted no 'sampled_points': use "
                     "an FSCD-147 eval or pseudo dataset with num_sampled_points > 0")
             with torch.inference_mode():
-                out = model(*_inputs(model, batch, keys), aux_outputs=False)
+                out = model(*_inputs(model, batch, keys), aux_outputs=False, masks=False)
                 logits, boxes, refs = (out[k].float().cpu().numpy() for k in
                                        ("pred_logits", "pred_boxes", "reference_points"))
             pts_valid = batch.get("points_valid")
@@ -258,7 +260,7 @@ def stage1_test(
             meta = batch["meta"]
             with torch.inference_mode():
                 out = model(*_inputs(model, batch, ("images", "pad_mask", "points",
-                                                    "points_valid")))
+                                                    "points_valid")), masks=False)
                 logits = out["pred_logits"].float()
                 boxes_cxcywh = torch.cat([out["pred_points"], out["pred_wh"]], -1).float()
                 sizes = torch.tensor([[m["orig_size"][1], m["orig_size"][0]] for m in meta],

@@ -8,7 +8,10 @@ reference 1st-stage engine.py:27-75, 2nd-stage engine.py:14-67).
 
 ``cfg.stage`` picks the loss. Stage 1 (``stage1_config``): the forward on
 the exemplar centres as queries and the wh losses against their w, h; no
-matching. Stage 2: the forward, matching on the device (the auction kernel,
+matching. Neither loss reads masks (as in the JAX package), so the forward
+skips the mask head of a ``masks`` model: its parameters get zero
+gradients and only the weight decay moves them, as in the JAX package.
+Stage 2: the forward, matching on the device (the auction kernel,
 on detached outputs) and the stage-2 losses; with ``aux_loss`` each earlier
 decoder layer is matched on its own (one more auction launch each, as the
 JAX package matches each output) and its weighted class, L1 and GIoU terms
@@ -92,7 +95,7 @@ def stage1_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig,
     """Weighted stage-1 loss of a prepared batch: (total, the unweighted
     parts with ``loss``)."""
     out = model(batch["images"], batch["pad_mask"], batch["points"], batch["points_valid"],
-                generator=generator)
+                generator=generator, masks=False)
     parts = loss_ops.stage1_criterion(out["pred_wh"], batch["points"], batch["whs"],
                                       batch["points_valid"])
     total = (train_cfg.wh_loss_coef * parts["loss_wh"]
@@ -129,7 +132,7 @@ def stage2_loss(model, batch: Dict[str, torch.Tensor], train_cfg: TrainConfig,
     anchor_detr.py:334-347)."""
     out = model(batch["images"], batch["pad_mask"], batch["exemplar_boxes"],
                 batch.get("sampled_points"), batch.get("sampled_points_valid"),
-                generator=generator)
+                generator=generator, masks=False)
     if match is None:
         match = match_outputs(out["pred_logits"], out["pred_boxes"], batch, train_cfg)
     t = train_cfg

@@ -4,10 +4,14 @@
 countdetr_tpu/train/checkpoints.py (``torch_state_dict_to_params``): it
 takes the flax variables of a stage-1 or stage-2 CountingDetr as numpy
 arrays (``{"params": {...}}``) and returns the port's state_dict, whose
-keys are the reference torch model's. Conv kernels go HWIO -> OIHW; the
-stem stays the reference's (64, 3, 7, 7). The learned prior's top-level
-``position`` goes to the reference's ``transformer.position.weight``. Every
-JAX parameter is used; one the mapping does not know raises.
+keys are the reference torch model's. Conv kernels go HWIO -> OIHW, Dense
+kernels (in, out) -> (out, in); the stem stays the reference's (64, 3, 7,
+7). The learned prior's top-level ``position`` goes to the reference's
+``transformer.position.weight``; the levels' ``input_proj_{lv}`` to
+``input_proj.{lv}``, ``encoder_level_{i}`` to
+``transformer.encoder_layers_level.{i}``; the mask head's
+``bbox_attention`` and ``mask_head`` keep their names. Every JAX parameter
+is used; one the mapping does not know raises.
 
 The bbox head's wh bias [0, 0, -2, -2] is added in the forward, outside the
 parameter, in the port as in the JAX package, so the head's last bias maps
@@ -65,6 +69,18 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     def unknown(where, name):
         raise KeyError(f"params_from_jax: no mapping for {where}/{name}")
 
+    def block(prefix, m, parts, where):
+        """Each submodule of a layer by the mapper of its name."""
+        for sub, mm in m.items():
+            if sub not in parts:
+                unknown(where, sub)
+            parts[sub](f"{prefix}.{sub}", mm)
+
+    def proj_block(prefix, m):
+        put(f"{prefix}.0.weight", m["conv"]["kernel"], conv=True)
+        put(f"{prefix}.0.bias", m["conv"]["bias"])
+        norm(f"{prefix}.1", m["norm"])
+
     for name, m in p["backbone"].items():
         pre = "backbone.body"
         if name == "conv1":
@@ -88,32 +104,33 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             unknown("backbone", name)
 
-    # stage 1 projects C5 (input_proj), stage 2 the aggregated map
-    proj_name = "input_proj" if "input_proj" in p else "aggr_input_proj"
-    proj = p[proj_name]
-    put(f"{proj_name}.0.0.weight", proj["conv"]["kernel"], conv=True)
-    put(f"{proj_name}.0.0.bias", proj["conv"]["bias"])
-    norm(f"{proj_name}.0.1", proj["norm"])
+    # stage 1 projects C5 (input_proj) or each of three levels
+    # (input_proj_{lv}), stage 2 the aggregated map (aggr_input_proj)
+    projs = {}
+    for name in p:
+        if name in ("input_proj", "aggr_input_proj"):
+            projs[name] = f"{name}.0"
+        elif name.startswith("input_proj_"):
+            projs[name] = f"input_proj.{int(name.split('_')[-1])}"
+    for name, prefix in projs.items():
+        proj_block(prefix, p[name])
 
+    enc_parts = {"self_attn": attn, "self_attn_level": attn, "norm1": norm, "ffn": ffn}
+    dec_parts = {"self_attn": attn, "cross_attn": attn, "norm1": norm, "norm2": norm,
+                 "ffn": ffn, "level_fc": linear}
     for name, m in p["transformer"].items():
         pre = f"transformer.{name}"
-        if name == "pattern":
+        if name in ("pattern", "level_embed"):
             put(f"{pre}.weight", m)
         elif name in ("adapt_pos1d", "adapt_pos2d"):
             linear(f"{pre}.0", m["0"])
             linear(f"{pre}.2", m["2"])
+        elif name.startswith("encoder_level_"):  # before the spatial layers' prefix
+            block(f"transformer.encoder_layers_level.{name.split('_')[-1]}", m, enc_parts, name)
         elif name.startswith("encoder_"):
-            pre = f"transformer.encoder_layers.{name.split('_')[1]}"
-            attn(f"{pre}.self_attn", m["self_attn"])
-            norm(f"{pre}.norm1", m["norm1"])
-            ffn(f"{pre}.ffn", m["ffn"])
+            block(f"transformer.encoder_layers.{name.split('_')[1]}", m, enc_parts, name)
         elif name.startswith("decoder_"):
-            pre = f"transformer.decoder_layers.{name.split('_')[1]}"
-            attn(f"{pre}.self_attn", m["self_attn"])
-            attn(f"{pre}.cross_attn", m["cross_attn"])
-            norm(f"{pre}.norm1", m["norm1"])
-            norm(f"{pre}.norm2", m["norm2"])
-            ffn(f"{pre}.ffn", m["ffn"])
+            block(f"transformer.decoder_layers.{name.split('_')[1]}", m, dec_parts, name)
         elif name == "cls_embed":
             linear(f"{pre}.0", m)
         elif name in ("bbox_embed", "bbox_variance"):
@@ -124,7 +141,19 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     if "position" in p:  # the learned prior's anchors
         put("transformer.position.weight", p["position"])
 
-    extra = set(p) - {"backbone", proj_name, "transformer", "position"}
+    if "bbox_attention" in p:  # the mask head; Dense kernels are (in, out)
+        for name, m in p["bbox_attention"].items():
+            put(f"bbox_attention.{name}.weight", np.asarray(m["kernel"]).T)
+            put(f"bbox_attention.{name}.bias", m["bias"])
+    for name, m in p.get("mask_head", {}).items():
+        if name.startswith("gn"):
+            norm(f"mask_head.{name}", m)
+        else:
+            put(f"mask_head.{name}.weight", m["kernel"], conv=True)
+            put(f"mask_head.{name}.bias", m["bias"])
+
+    extra = set(p) - {"backbone", "transformer", "position", "bbox_attention",
+                      "mask_head", *projs}
     if extra:
         unknown("params", sorted(extra)[0])
     return sd

@@ -174,8 +174,10 @@ def test_restored_checkpoint_forward_matches_jax(tmp_path):
 def reference_pth(model, path, stage):
     """The model's weights as the reference saves them: the Joiner prefix,
     the wh bias folded in, the shared heads stored once per decoder layer,
-    stage 2's unused plain input_proj, stage 1's (1,) cls bias, thop
-    counters and a pickled argparse Namespace."""
+    stage 2's unused plain input_proj, stage 1's (1,) cls bias, the
+    adapt_pos1d the reference keeps under standard attention too, with a
+    mask head DETRsegm's ``detr.`` prefix on all but bbox_attention and
+    mask_head, thop counters and a pickled argparse Namespace."""
     sd = {}
     for k, v in model.state_dict().items():
         sd[k.replace("backbone.body.", "backbone.0.body.")] = v.clone()
@@ -185,13 +187,21 @@ def reference_pth(model, path, stage):
                                              "transformer.bbox_variance.0."))]:
         for j in range(1, 6):
             sd[k.replace(".0.", f".{j}.", 1)] = sd[k].clone()
+    C = model.cfg.hidden_dim
     if stage == 2:
-        sd["input_proj.0.0.weight"] = torch.zeros(32, 2048, 1, 1)
-        sd["input_proj.0.0.bias"] = torch.zeros(32)
-        sd["input_proj.0.1.weight"] = torch.ones(32)  # its GroupNorm
-        sd["input_proj.0.1.bias"] = torch.zeros(32)
+        sd["input_proj.0.0.weight"] = torch.zeros(C, 2048, 1, 1)
+        sd["input_proj.0.0.bias"] = torch.zeros(C)
+        sd["input_proj.0.1.weight"] = torch.ones(C)  # its GroupNorm
+        sd["input_proj.0.1.bias"] = torch.zeros(C)
     else:
         sd["transformer.cls_embed.0.bias"] = sd["transformer.cls_embed.0.bias"][:1].clone()
+    if "transformer.adapt_pos1d.0.weight" not in sd:
+        for j in (0, 2):
+            sd[f"transformer.adapt_pos1d.{j}.weight"] = torch.zeros(C, C)
+            sd[f"transformer.adapt_pos1d.{j}.bias"] = torch.zeros(C)
+    if model.cfg.masks:
+        sd = {k if k.startswith(("bbox_attention.", "mask_head.")) else "detr." + k: v
+              for k, v in sd.items()}
     sd["total_ops"] = torch.zeros(1)
     torch.save({"model": sd, "args": argparse.Namespace(lr=1e-4), "epoch": 3}, path)
     return sd

@@ -7,14 +7,16 @@
   command lines (the stage presets, --exact_replay, --lr_drop_epochs, the
   --cost_* aliases, --no_pack_s2d, --host_normalize, LVIS, the decoded
   caches), and ``build_dataset`` the same reader class;
-- each flag value the port's model does not have yet (the mask head, MHA
-  attention, multi-level) exits with a SystemExit naming its ROADMAP.md
-  item (and none reaches the model's bare NotImplementedError); the values
-  it has gained (the learned and sampled priors, a prior other than the
-  stage's own, --aux_loss, --dropout) run the mode at a tiny width, or
-  raise where the JAX model asserts (the defined prior in stage 2 has no
-  points to read); a bare ``--stage 2`` trains and infers from its
-  checkpoint; the process topology of one process is JAX's;
+- every model flag value runs the mode at a tiny width (the learned and
+  sampled priors, a prior other than the stage's own, --aux_loss,
+  --dropout, --masks, --attention_type nn.MultiheadAttention,
+  --num_feature_levels 3), or raises where the JAX model asserts (the
+  defined prior in stage 2 has no points to read); the combinations the
+  JAX model cannot build (levels other than 1 or 3, levels in stage 2,
+  with --masks or with standard attention) exit with a SystemExit that
+  says why, before anything is written; a bare ``--stage 2`` trains and
+  infers from its checkpoint; the process topology of one process is
+  JAX's;
 - ``evaluate_predictions``, ``per_image_ap`` and ``analyze_results`` of both
   packages agree to 1e-12 on the same predictions, for FSCD-147 and
   FSCD-LVIS (the same float64 arithmetic on both sides).
@@ -92,9 +94,11 @@ def parse(mod, argv):
     ["--stage", "2"],
     STAGE2 + ["--aux_loss", "--dropout", "0.1", "--spatial_prior", "learned"],
     STAGE1 + ["--spatial_prior", "sampled", "--num_sample_points", "32", "--dropout", "0.2"],
+    STAGE2 + ["--masks", "--attention_type", "nn.MultiheadAttention"],
+    STAGE1 + ["--num_feature_levels", "3"],
 ], ids=["stage1", "stage2", "exact_replay", "lr_drop_epochs", "cost_aliases", "no_pack_s2d",
         "host_normalize", "lvis", "lvis_point", "decoded_cache", "decoded_cache_dir",
-        "sampled", "bare_stage2", "aux_dropout", "stage1_sampled"])
+        "sampled", "bare_stage2", "aux_dropout", "stage1_sampled", "masks_mha", "levels"])
 def test_config_from_args_matches_jax(argv):
     got = tmain.config_from_args(parse(tmain, argv))
     want = jmain.config_from_args(parse(jmain, argv))
@@ -123,6 +127,17 @@ def test_lr_group_names_refused_as_jax():
             mod.config_from_args(parse(mod, argv))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The runs below are tiny models, dispatch more than arithmetic: one
+    intra-op thread spares them the thread pool's cost while the suite's
+    other workers hold every core (they took ~50x their lone time there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     return make_synthetic_fscd147(str(tmp_path_factory.mktemp("fscd")), n_train=4, n_val=3,
@@ -136,21 +151,25 @@ def lvis_tree(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("argv,unsupported", [
-    (STAGE2 + ["--masks"], "the mask head"),
-    (STAGE2 + ["--attention_type", "nn.MultiheadAttention"], 'attention_type="MHA"'),
-    (STAGE1 + ["--num_feature_levels", "4"], "multi-level"),
-], ids=["masks", "mha", "multilevel"])
+@pytest.mark.parametrize("argv,reason", [
+    (STAGE1 + ["--num_feature_levels", "2"], "must be 1 or 3"),
+    (STAGE1 + ["--num_feature_levels", "4"], "must be 1 or 3"),
+    (STAGE2 + ["--num_feature_levels", "3"], "excludes exemplar aggregation"),
+    (STAGE1 + ["--num_feature_levels", "3", "--masks"], "masks exclude"),
+    (STAGE1 + ["--num_feature_levels", "3", "--attention_type", "nn.MultiheadAttention"],
+     "RCDA attention only"),
+], ids=["two_levels", "four_levels", "levels_stage2", "levels_masks", "levels_mha"])
 @pytest.mark.parametrize("mode", ["train", "--infer"])
-def test_unsupported_flag_values_exit_naming_their_item(tree, tmp_path, argv, unsupported,
-                                                        mode):
+def test_combinations_jax_cannot_build_exit_saying_why(tree, tmp_path, argv, reason, mode):
+    """Each fails in the JAX model when it is built (an assert, or shapes
+    that do not meet); the port's CLI exits first, writing nothing."""
     extra = [] if mode == "train" else [mode]
     args = tmain.get_args_parser().parse_args(
         ["--data_path", tree, "--output_dir", str(tmp_path), "--device", "cpu"] + argv + extra)
     with pytest.raises(SystemExit) as e:
         tmain.main(args)
     msg = str(e.value)
-    assert unsupported in msg and "ROADMAP.md, Queue 1 item 6 (long tail)" in msg, msg
+    assert msg.startswith("model flags: ") and reason in msg, msg
     assert not os.path.exists(tmp_path / "log.txt")
 
 
@@ -176,22 +195,32 @@ def run_cli(tree, out, argv):
     STAGE2[:2] + ["--spatial_prior", "defined"],
     STAGE2 + ["--aux_loss"],
     STAGE2 + ["--dropout", "0.1"],
+    STAGE2 + ["--masks"],
+    STAGE2 + ["--attention_type", "nn.MultiheadAttention"],
+    STAGE1 + ["--num_feature_levels", "3"],
 ], ids=["default_prior", "learned", "sampled", "stage1_grid", "stage2_defined", "aux_loss",
-        "dropout"])
+        "dropout", "masks", "mha", "multilevel"])
 @pytest.mark.parametrize("mode", ["train", "--infer"])
 def test_flag_values_the_port_gained_run_the_mode(tree, tmp_path, argv, mode):
     """What the refusals of these values became: train takes its step and
     writes its log and checkpoint; --infer (stage 1: its --test) writes its
     predictions. Stage 2 under the defined prior raises as the JAX model
-    asserts: no stage-2 dataset carries the points it reads."""
+    asserts: no stage-2 dataset carries the points it reads. The model is
+    the one the flags ask for (its mask head, standard attention, three
+    levels)."""
     stage1 = argv[1] == "1"
     extra = [] if mode == "train" else ["--test" if stage1 else "--infer"]
-    if "defined" in argv:
+    if "defined" in argv and not stage1:
         with pytest.raises(ValueError, match="the defined prior needs points"):
             run_cli(tree, tmp_path, argv + extra)
         return
     out = run_cli(tree, tmp_path, argv + extra)
     if mode == "train":
+        cfg = out.cfg
+        assert (cfg.masks, cfg.attention_type, cfg.num_feature_levels) == (
+            "--masks" in argv, "MHA" if "nn.MultiheadAttention" in argv else "RCDA",
+            3 if "--num_feature_levels" in argv else 1)
+        assert hasattr(out.model, "mask_head") == cfg.masks
         assert out.scheduler.last_epoch == 1 and int(out.bad_steps) == 0
         log = [json.loads(line) for line in (tmp_path / "log.txt").read_text().splitlines()]
         assert len(log) == 1 and np.isfinite(log[0]["loss"])

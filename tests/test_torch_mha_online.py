@@ -5,7 +5,8 @@ in torch, step for step: key tiles of 64 or 128 keys, keys past S at -inf,
 logits q.k log2(e) + bias log2(e), a running row max from -FLT_MAX,
 p = 2^(x - m) summed unrounded in f32, p rounded to v's dtype for the PV
 product (f32 accumulation), the output rescaled by 2^(m_old - m_new) when
-the max grows and divided by the f32 sum once at the end. That is held
+the max grows and divided by the f32 sum once at the end; a row whose keys
+fit one tile is normalised before the rounding instead. That is held
 against the JAX package's ``mha_core_einsum`` and its Pallas ``fused_mha``
 (interpret mode), which round the normalised probabilities instead: within
 1e-2 in bfloat16 and 1e-5 in float32. One image has part of its keys
@@ -40,6 +41,7 @@ def mha_online(q, k, v, bias, num_heads, tile):
     m = torch.full((b, num_heads, l), -FLT_MAX)
     z = torch.zeros(b, num_heads, l)
     o = torch.zeros(b, num_heads, l, d)
+    one_tile = S <= tile  # normalised before the rounding, no division at the end
     for t0 in range(0, S, tile):
         pad = max(0, t0 + tile - S)  # the last tile's keys past S: zero rows, bias -inf
         kt = torch.nn.functional.pad(kh[:, :, t0:t0 + tile], (0, 0, 0, pad))
@@ -51,6 +53,8 @@ def mha_online(q, k, v, bias, num_heads, tile):
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new[..., None])
         z = z * alpha + p.sum(-1)
+        if one_tile:
+            p, z = p * (1.0 / z)[..., None], torch.ones_like(z)
         o = o * alpha[..., None] + torch.einsum("bnlt,bntd->bnld", p.to(v.dtype).float(),
                                                 vt.float())
         m = m_new

@@ -123,8 +123,13 @@ def test_stage1_config_and_refusals():
                dict(aux_loss=True)):
         model = CountingDetr(stage1_config(**TINY1, **ok))
         assert hasattr(model.transformer, "position") == (ok.get("spatial_prior") == "learned")
-    for bad in (dict(attention_type="MHA"), dict(num_feature_levels=3)):
-        with pytest.raises(NotImplementedError):
+    # standard attention and three levels are in it too; the combinations
+    # the JAX model cannot build raise ValueError
+    for ok in (dict(attention_type="MHA"), dict(num_feature_levels=3), dict(masks=True)):
+        CountingDetr(stage1_config(**TINY1, **ok))
+    for bad in (dict(num_feature_levels=2), dict(num_feature_levels=3, masks=True),
+                dict(num_feature_levels=3, attention_type="MHA")):
+        with pytest.raises(ValueError, match="num_feature_levels"):
             CountingDetr(stage1_config(**TINY1, **bad))
 
 
