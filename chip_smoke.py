@@ -137,7 +137,30 @@ Phases, each printed as one JSON line:
             rank-1 and 6 MHA a forward, 1 auction a stage-2 train or eval
             step), the files written, peak memory and no worker process
             left; the modes' output in --out/cli/;
-Then (after the cli phase, the longtail phase) the kernels line with each
+  ddp       data parallelism at full width (stage2_config, 576 queries):
+            (a) a world of 2 processes over gloo on the one card (spawned
+            after the kernels are built; NCCL refuses two ranks on one
+            device, which the ranks then show by trying it) trains 4
+            float32 steps at B=8 a rank (global batches of 16 at 592x592,
+            T=700 and 128 in turns, image 0 with 40 valid targets) against
+            one process taking the same global batches: the losses and
+            gradient norm within DDP_TOL, the weights within the Adam bound,
+            the assignments compared row by row, 12 RCDA, 6 MHA and 1
+            auction launch a step on each rank; (b) a world of 1 over NCCL:
+            bfloat16 steps of the DDP Trainer and the bare one in turns (the
+            wrapper's overhead), one profiled DDP step read by
+            utils/xprof.py from the live profiler and from its Chrome trace
+            (device ms by category, the all-reduce kernels, the step's
+            record_function range); (c) an uneven epoch of 19 samples
+            (global batches of 16 and 3: rank 1's second slice is padding
+            only) through train_one_epoch, the same losses on both ranks;
+            (d) the world's checkpoint, written by rank 0, restored in one
+            process bit-equal to both ranks' states (sha256 of each
+            tensor); (e) remat on against off at B=8: float32 loss and
+            gradients on the same match, then bfloat16 steps of each, their
+            time, peak memory and launches (24 RCDA and 12 MHA a step under
+            remat: the recompute launches the forward kernels again);
+Then (after the cli phase, the longtail and ddp phases) the kernels line with each
 path's launch counts (its "launches": the cli phase's pipeline modes), the
 card's
 nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
@@ -152,6 +175,7 @@ non-zero; without a CUDA device nothing is printed on stdout.
                                                  # cli phase
     python3 chip_smoke.py --only defaults        # likewise, the defaults phase
     python3 chip_smoke.py --only longtail        # likewise, the longtail phase
+    python3 chip_smoke.py --only ddp             # likewise, the ddp phase
     python3 chip_smoke.py --only convergence     # the learning-loop check
 
 The ``convergence`` phase runs only when asked for:
@@ -179,7 +203,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("engine", "cli", "defaults", "longtail", "convergence")  # runnable alone with --only
+PHASES = ("engine", "cli", "defaults", "longtail", "ddp", "convergence")  # runnable with --only
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -588,7 +612,7 @@ def perturb_(model, seed):
     with torch.no_grad():
         for name, p in model.named_parameters():
             if not name.startswith("backbone"):
-                p.add_(torch.randn(p.shape, generator=g) * 0.02)
+                p.add_((torch.randn(p.shape, generator=g) * 0.02).to(p.device))
 
 
 def train_batch(rng, B, size, T, n_valid_first=None, pad=None):
@@ -2122,6 +2146,577 @@ def convergence_phase(smi, failures, out_dir):
           "phase_wall_s": time.perf_counter() - t, "nvidia_smi": smi})
 
 
+# ---------------------------------------------------------------- ddp
+
+DDP_WORLD = 2  # processes of the shared-card world (a)
+DDP_BATCH = 8  # images a rank a step
+DDP_T = (700, 128)  # target capacities, in turns (the train phase's)
+DDP_PLAN = tuple((11 + i, DDP_T[i % 2]) for i in range(4))  # (seed, T) of each global batch
+DDP_UNEVEN = 19  # samples: a global batch of 16, then 3 (rank 1's slice all padding)
+DDP_LR = 1e-4
+# float32, a world of 2 against one process on the same global batches and
+# the same match: the losses and gradient norm (relative), and the weights
+# within the Adam bound of tests/test_torch_train.py (a weight whose gradient
+# is float32 noise moves by up to lr a step either way)
+DDP_TOL = 2e-4
+DDP_WEIGHT_TOL = 2 * len(DDP_PLAN) * DDP_LR
+REMAT_GRAD_TOL = 1e-4  # float32, remat on vs off: max |diff| / max |grad| of each tensor
+REMAT_STEPS = 5  # timed bf16 steps a turn (off, on, on, off)
+DDP_JOIN_S = 300
+# where and at what size the phase runs (a CPU rehearsal shrinks these; the
+# spawned ranks take them from their spec)
+DDP_DEVICE = "cuda"
+DDP_SIZE = 592
+DDP_MODEL = {}  # stage2_config overrides
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ddp_global_batch(seed, T, size, B):
+    """The global batch of (a): image 0 keeps 40 of T targets, so the ranks'
+    valid and matched counts differ."""
+    return train_batch(np.random.default_rng(seed), B, size, T, n_valid_first=40)
+
+
+class DdpDataset:
+    """Stage-2 samples of size x size for the uneven epoch (c): a uint8 image,
+    10-120 target boxes (cxcywh) and the three exemplars, from a seed per
+    index."""
+
+    def __init__(self, n, size):
+        self.n, self.size = n, size
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(500 + i)
+        boxes = rng.uniform(0.2, 0.7, (int(rng.integers(10, 121)), 4)).astype(np.float32)
+        boxes[:, 2:] = rng.uniform(0.02, 0.2, (len(boxes), 2))
+        return {"image": rng.integers(0, 256, (self.size, self.size, 3), dtype=np.uint8),
+                "boxes": boxes, "exemplar_boxes": np.asarray(EXEMPLARS, np.float32),
+                "image_name": f"{i}.jpg"}
+
+    def image_size(self, i):
+        return (self.size, self.size)
+
+
+def recording_matcher(store, replay=None, rows=None):
+    """(matching.batched_match, a matcher that calls it and keeps each
+    call's assignment on the host). With ``replay`` (a list of (tgt2query,
+    matched) of another run) the matcher returns that run's ``rows`` of its
+    next entry instead: the auction still launches and its own assignment
+    is kept, but the loss takes the other run's match."""
+    from countdetr_tpu_torch.ops import matching
+
+    solve = matching.batched_match
+    calls = iter(replay or ())
+
+    def match(*a, **k):
+        tq, m = solve(*a, **k)
+        store.append((tq.cpu(), m.cpu()))
+        if replay is None:
+            return tq, m
+        rtq, rm = next(calls)
+        return rtq[rows].to(tq.device), rm[rows].to(m.device)
+
+    return solve, match
+
+
+def state_digest(state):
+    """sha256 of each tensor of a Trainer state (bytes on the host), and the
+    other leaves as they are."""
+    import hashlib
+
+    out = {}
+    for k, v in flat_state(state):
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu().contiguous()
+            out[k] = f"{t.dtype}{tuple(t.shape)}" + hashlib.sha256(
+                t.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+        else:
+            out[k] = repr(v)
+    return out
+
+
+def ddp_rank(rank, world, store, spec, out_path):
+    """One rank of the world (a), (c), (d): started with spawn by ddp_phase.
+    Writes its results to ``out_path`` (pickle), then tries NCCL on the
+    shared card and writes that outcome beside it."""
+    import pickle
+    import traceback
+
+    res = {"rank": rank}
+    try:
+        sys.path.insert(0, REPO)
+        import torch.distributed as dist
+
+        from countdetr_tpu_torch.config import TrainConfig, stage2_config
+        from countdetr_tpu_torch.core import mesh
+        from countdetr_tpu_torch.data.batching import Batcher
+        from countdetr_tpu_torch.ops import matching
+        from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+        from countdetr_tpu_torch.train import checkpoints as ckpt
+        from countdetr_tpu_torch.train import engine
+        from countdetr_tpu_torch.train.train_step import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev, size, bs = spec["device"], spec["size"], spec["batch"]
+        mesh.init_distributed(dev, init_method=f"file://{store}", rank=rank, world_size=world,
+                              timeout_s=DDP_JOIN_S)
+        trainer = Trainer(stage2_config(**spec["model"]), TrainConfig(lr=DDP_LR),
+                          device=mesh.local_device(dev), state_dict=torch.load(spec["weights"]),
+                          distributed=True)
+        res.update(backend=dist.get_backend(), device=str(trainer.device))
+        kernels = (rcda_kernel, mha_kernel, auction_kernel)
+        matches = []
+        solve, matching.batched_match = recording_matcher(
+            matches, torch.load(spec["replay"]), slice(rank * bs, (rank + 1) * bs))
+        reset_launches(*kernels)
+        metrics, step_ms = [], []
+        for seed, T in spec["plan"]:
+            g = ddp_global_batch(seed, T, size, world * bs)
+            mine = {k: v[rank * bs:(rank + 1) * bs] for k, v in g.items()}
+            _sync(dev)
+            t = time.perf_counter()
+            m = trainer.step(mine)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+        matching.batched_match = solve
+        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(*kernels),
+                   matches=matches)
+        res["model"] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()} \
+            if rank == 0 else None
+
+        # (c) an uneven epoch: 19 samples, global batches of 16 and 3
+        batcher = Batcher(DdpDataset(spec["uneven"], size), bs, [(size, size)],
+                          max_boxes=128, pack_s2d=True, process_index=rank, process_count=world)
+        losses, step = [], trainer.step
+
+        def logged(batch):
+            out = step(batch)
+            losses.append(out["loss"])
+            return out
+
+        trainer.step = logged
+        reset_launches(*kernels)
+        t = time.perf_counter()
+        stats = engine.train_one_epoch(trainer, batcher, 0, log_every=100)
+        _sync(dev)
+        res["epoch"] = {"stats": stats, "losses": [float(x) for x in losses],
+                        "launches": launch_counts(*kernels), "bad_steps": int(trainer.bad_steps),
+                        "wall_s": time.perf_counter() - t}
+        trainer.step = step
+
+        # (d) rank 0 writes the checkpoint, rank 1 waits at the barrier
+        t = time.perf_counter()
+        ckpt.save_checkpoint(spec["ckpt"], trainer.scheduler.last_epoch, trainer, {"epoch": 0})
+        res["save_s"] = time.perf_counter() - t
+        res["digest"] = state_digest(ckpt._host_copy(trainer.state_dict()))
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(out_path + ".tmp", out_path)
+    if "error" in res:
+        os._exit(1)
+    # NCCL with both ranks on the one card: expected to refuse
+    nccl = {}
+    try:
+        import torch.distributed as dist
+
+        group = dist.new_group(backend="nccl")
+        x = torch.ones(1, device=spec["device"])
+        dist.all_reduce(x, group=group)
+        _sync(spec["device"])
+        nccl = {"refused": False, "sum": x.item()}
+    except BaseException as e:  # the refusal is the expected outcome
+        nccl = {"refused": True, "error": f"{type(e).__name__}: {str(e)[:300]}"}
+    with open(out_path + ".nccl", "wb") as f:
+        pickle.dump(nccl, f)
+    os._exit(0)
+
+
+def relative(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def ddp_phase(smi, failures):
+    """Data parallelism on the card: (a) a world of 2 over gloo on the one
+    card against one process on the same global batches (float32), both
+    through the kernels; (b) a world of 1 over NCCL, the DDP step against
+    the bare Trainer's, and its profile read by utils/xprof.py; (c) an
+    uneven epoch whose tail leaves rank 1 only padding; (d) the world's
+    checkpoint restored in one process, bit-equal; (e) remat on against
+    off. Returns the launch counts of each path."""
+    import multiprocessing as mp
+    import pickle
+
+    import torch.distributed as dist
+
+    from countdetr_tpu_torch.config import TrainConfig, stage2_config
+    from countdetr_tpu_torch.core import mesh
+    from countdetr_tpu_torch.ops import matching
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train import checkpoints as ckpt
+    from countdetr_tpu_torch.train.train_step import Trainer, prepare_stage2_batch, stage2_loss
+    from countdetr_tpu_torch.utils import xprof
+
+    t_phase = time.perf_counter()
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    work = tempfile.mkdtemp(prefix="ddp_")
+    rec = {"phase": "ddp", "world": DDP_WORLD, "batch_per_rank": DDP_BATCH,
+           "bucket": [DDP_SIZE, DDP_SIZE], "targets_per_step": [T for _, T in DDP_PLAN],
+           "tol": DDP_TOL, "weight_tol": DDP_WEIGHT_TOL}
+    paths = {}
+    try:
+        # (a) one process on the global batches of 16, float32
+        single = Trainer(stage2_config(**DDP_MODEL), TrainConfig(lr=DDP_LR), device=DDP_DEVICE,
+                         seed=0)
+        perturb_(single.model, 3)
+        weights = os.path.join(work, "weights.pt")
+        torch.save({k: v.detach().cpu() for k, v in single.model.state_dict().items()}, weights)
+        single_matches = []
+        solve, matching.batched_match = recording_matcher(single_matches)
+        reset_launches(*kernels)
+        one, one_ms = [], []
+        try:
+            for seed, T in DDP_PLAN:
+                _sync(DDP_DEVICE)
+                t = time.perf_counter()
+                m = single.step(ddp_global_batch(seed, T, DDP_SIZE, DDP_WORLD * DDP_BATCH))
+                _sync(DDP_DEVICE)
+                one_ms.append((time.perf_counter() - t) * 1e3)
+                one.append({k: v.item() for k, v in m.items()})
+        finally:
+            matching.batched_match = solve
+        paths["ddp_one_process"] = launch_counts(*kernels)
+        torch.save(single_matches, os.path.join(work, "matches.pt"))
+        one_model = {k: v.detach().cpu() for k, v in single.model.state_dict().items()}
+        trainable = {n for n, p in single.model.named_parameters() if p.requires_grad}
+        del single
+        torch.cuda.empty_cache()
+
+        # the world of 2 on the shared card: (a), (c), (d)
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(work, f"rank{r}.pkl") for r in range(DDP_WORLD)]
+        spec = {"weights": weights, "ckpt": os.path.join(work, "ckpt"), "device": DDP_DEVICE,
+                "size": DDP_SIZE, "model": DDP_MODEL, "plan": DDP_PLAN, "batch": DDP_BATCH,
+                "uneven": DDP_UNEVEN, "replay": os.path.join(work, "matches.pt")}
+        t = time.perf_counter()
+        procs = [ctx.Process(target=ddp_rank, args=(r, DDP_WORLD, os.path.join(work, "store"),
+                                                     spec, outs[r]))
+                 for r in range(DDP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + DDP_JOIN_S
+        while time.time() < deadline and not all(os.path.exists(o) for o in outs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        # the NCCL attempt after the results: its outcome, or a hang cut at 60 s
+        deadline = min(deadline, time.time() + 60)
+        while time.time() < deadline and any(p.is_alive() for p in procs) and \
+                not all(os.path.exists(o + ".nccl") for o in outs):
+            time.sleep(0.5)
+        time.sleep(1.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        rec["world_wall_s"] = time.perf_counter() - t
+        ranks = []
+        for r, o in enumerate(outs):
+            if not os.path.exists(o):
+                failures.append(("ddp rank", r, "no result", procs[r].exitcode))
+                ranks.append(None)
+                continue
+            with open(o, "rb") as f:
+                ranks.append(pickle.load(f))
+            if "error" in ranks[-1]:
+                failures.append(("ddp rank", r, ranks[-1]["error"][-2000:]))
+        nccl = []
+        for o, x in zip(outs, ranks):
+            if os.path.exists(o + ".nccl"):
+                with open(o + ".nccl", "rb") as f:
+                    nccl.append(pickle.load(f))
+            elif x is None or "error" in x:
+                nccl.append({"refused": None, "error": "not tried: the rank failed"})
+            else:
+                nccl.append({"refused": None, "error": "no outcome (hung, killed)"})
+        rec["nccl_two_ranks_one_card"] = nccl
+        if all(x is not None and "error" not in x for x in ranks):
+            world_rec(rec, ranks, one, one_ms, one_model, trainable, single_matches, failures)
+            for x in ranks:
+                paths[f"ddp_rank{x['rank']}"] = x["launches"]
+                paths[f"ddp_epoch_rank{x['rank']}"] = x["epoch"]["launches"]
+            # (d) the world's checkpoint in one process
+            d = spec["ckpt"]
+            restored = Trainer(stage2_config(**DDP_MODEL), TrainConfig(lr=DDP_LR),
+                               device=DDP_DEVICE, seed=9)
+            step = ckpt.latest_step(d)
+            meta = ckpt.restore_checkpoint(d, step, restored)
+            digest = state_digest(ckpt._host_copy(restored.state_dict()))
+            bad = [k for k in digest if any(digest[k] != x["digest"].get(k) for x in ranks)]
+            rec["checkpoint"] = {"step": step, "opt_step": meta["opt_step"],
+                                 "tensors": len(digest), "mismatched": bad,
+                                 "save_s": [x["save_s"] for x in ranks],
+                                 "ranks_equal": ranks[0]["digest"] == ranks[1]["digest"]}
+            if bad or step is None or not rec["checkpoint"]["ranks_equal"]:
+                failures.append(("ddp checkpoint", bad[:5], step))
+            del restored
+        shutil.rmtree(os.path.join(work, "ckpt"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (b) a world of 1 over NCCL: the DDP step against the bare Trainer's
+        mesh.init_distributed(DDP_DEVICE, init_method=f"file://{os.path.join(work, 'store1')}",
+                              rank=0, world_size=1)
+        try:
+            rec["world1"], paths["ddp_world1_nccl"] = world1_overhead(
+                smi, failures, dist, mesh, xprof, work)
+        finally:
+            mesh.shutdown()
+
+        # (e) remat on against off
+        rec["remat"], paths["remat"] = remat_check(failures, prepare_stage2_batch, stage2_loss)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return paths
+
+
+def world_rec(rec, ranks, one, one_ms, one_model, trainable, single_matches, failures):
+    """(a) and (c) of the ddp phase into ``rec``: the world's losses, gradient
+    norms and weights against one process's, its assignments against the
+    process's rows, its launches; the uneven epoch on both ranks."""
+    errs = {}
+    for x in ranks:
+        for i, (got, want) in enumerate(zip(x["metrics"], one)):
+            for k, w in want.items():
+                errs[k] = max(errs.get(k, 0.0), relative(got[k], w))
+    rec["metrics_one_process"] = one
+    rec["metrics_rank"] = [x["metrics"] for x in ranks]
+    rec["max_rel_err"] = errs
+    for k in ("loss", "loss_ce", "loss_bbox", "loss_giou", "loss_variance", "grad_norm"):
+        if not errs.get(k, np.inf) <= DDP_TOL:
+            failures.append(("ddp world vs one process", k, errs.get(k)))
+    if any(a != b for a, b in zip(ranks[0]["metrics"], ranks[1]["metrics"])):
+        failures.append(("ddp ranks report different metrics",))
+    w0 = ranks[0]["model"]
+    werr = max((w0[k] - one_model[k]).abs().max().item() for k in trainable)
+    frozen = max((w0[k] - one_model[k]).abs().max().item() for k in one_model
+                 if k not in trainable)
+    rec["weights_max_abs_err"] = {"trainable": werr, "frozen": frozen}
+    if not (werr <= DDP_WEIGHT_TOL and frozen == 0.0):
+        failures.append(("ddp weights", werr, frozen))
+    # the auction's own assignments on each rank against the process's rows
+    # (the losses took the process's: the auction at B=8 and at B=16 sees
+    # costs that differ in float rounding, and near-tied pairs swap)
+    diff = []
+    for step, (tq1, m1) in enumerate(single_matches):
+        n = 0
+        for x in ranks:
+            tq, m = x["matches"][step]
+            rows = slice(x["rank"] * DDP_BATCH, (x["rank"] + 1) * DDP_BATCH)
+            n += int(((tq != tq1[rows]) & m).sum()) + int((m != m1[rows]).sum())
+        diff.append(n)
+    rec["assignment_pairs_differing"] = diff
+    rec["matched_pairs"] = [int(m1.sum()) for _, m1 in single_matches]
+    rec["step_ms_one_process_b16"] = one_ms
+    rec["step_ms_rank"] = [x["step_ms"] for x in ranks]
+    rec["backend"] = [x["backend"] for x in ranks]
+    rec["launches_rank"] = [x["launches"] for x in ranks]
+    want = {"rcda": 12 * len(DDP_PLAN), "rcda_rank1": 0, "mha": 6 * len(DDP_PLAN),
+            "auction": len(DDP_PLAN)}
+    for x in ranks:
+        if x["launches"] != want:
+            failures.append(("ddp launches", x["rank"], x["launches"], want))
+        if x["backend"] != "gloo":
+            failures.append(("ddp backend on a shared card", x["backend"]))
+    # (c) the uneven epoch
+    ep = [x["epoch"] for x in ranks]
+    rec["uneven_epoch"] = {
+        "samples": DDP_UNEVEN, "steps": [e["stats"]["steps"] for e in ep],
+        "real_samples": [e["stats"]["real_samples"] for e in ep],
+        "losses": [e["losses"] for e in ep], "bad_steps": [e["bad_steps"] for e in ep],
+        "launches": [e["launches"] for e in ep], "wall_s": [e["wall_s"] for e in ep]}
+    u = rec["uneven_epoch"]
+    if not (u["steps"] == [2, 2] and u["real_samples"] == [DDP_BATCH + 3, DDP_BATCH]
+            and u["losses"][0] == u["losses"][1] and np.isfinite(u["losses"][0]).all()
+            and u["bad_steps"] == [0, 0]):
+        failures.append(("ddp uneven epoch", u))
+
+
+def world1_overhead(smi, failures, dist, mesh, xprof, work):
+    """(b): bfloat16 stage-2 steps at B=8, the bare Trainer and the same
+    weights in DDP over the NCCL world of 1, in turns; one profiled DDP step
+    read by utils/xprof.py from the live profiler and from its Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from countdetr_tpu_torch.config import TrainConfig, stage2_config
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    cfg = stage2_config(**DDP_MODEL, compute_dtype="bfloat16")
+    bare = Trainer(cfg, TrainConfig(), device=DDP_DEVICE, seed=0)
+    ddp = Trainer(cfg, TrainConfig(), device=DDP_DEVICE, state_dict=bare.model.state_dict(),
+                  distributed=True)
+    rng = np.random.default_rng(21)
+    batches = [train_batch(rng, DDP_BATCH, DDP_SIZE, DDP_T[0], n_valid_first=40),
+               train_batch(rng, DDP_BATCH, DDP_SIZE, DDP_T[1])]
+    for tr in (bare, ddp):  # warm-up
+        for b in batches:
+            tr.step(b)
+    _sync(DDP_DEVICE)
+
+    def timed(tr, n=4):
+        out = []
+        for i in range(n):
+            t = time.perf_counter()
+            tr.step(batches[i % 2])
+            _sync(DDP_DEVICE)
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_launches(*kernels)
+    turns = {"bare": [], "ddp": []}
+    order = ("bare", "ddp", "ddp", "bare") * 2
+    for name in order:
+        turns[name] += timed(bare if name == "bare" else ddp)
+    launches = launch_counts(*kernels)
+    n = 4 * len(order)
+    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n}
+    if launches != want:
+        failures.append(("ddp world-1 launches", launches, want))
+    _sync(DDP_DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("ddp_step"):
+            ddp.step(batches[0])
+            _sync(DDP_DEVICE)
+    events = xprof.events_from_profiler(prof)
+    table, busy_s = xprof.op_table(events)
+    trace = os.path.join(work, "profile", "trace.json")
+    os.makedirs(os.path.dirname(trace))
+    prof.export_chrome_trace(trace)
+    file_table, file_busy_s = xprof.parse_trace(os.path.dirname(trace))
+    by_cat = {}
+    for s, n, cat in table.values():
+        c = by_cat.setdefault(cat, [0.0, 0])
+        c[0] += s * 1e3
+        c[1] += n
+    comm = {k: [s * 1e3, n] for k, (s, n, cat) in table.items() if cat == "all-reduce"}
+    file_events = xprof.load_trace(trace)
+    bare_ms, ddp_ms = float(np.median(turns["bare"])), float(np.median(turns["ddp"]))
+    bare_prof = profile_calls(lambda: bare.step(batches[0]), 1, top=5)
+    out = {"backend": dist.get_backend(), "dtype": "bfloat16", "batch": DDP_BATCH,
+           "step_ms_bare": turns["bare"], "step_ms_ddp": turns["ddp"],
+           "step_ms_mean_bare": float(np.mean(turns["bare"])),
+           "step_ms_mean_ddp": float(np.mean(turns["ddp"])),
+           "step_ms_median_bare": bare_ms, "step_ms_median_ddp": ddp_ms,
+           "ddp_overhead_ms_median": ddp_ms - bare_ms,
+           "ddp_overhead_share_median": ddp_ms / bare_ms - 1.0,
+           "bare_step_device_busy_ms": bare_prof["device_busy_ms"],
+           "launches": launches, "launches_expected": want,
+           "profile_device_ms_by_category": by_cat, "all_reduce_kernels": comm,
+           "profile_device_busy_ms": busy_s * 1e3, "trace_file_device_busy_ms": file_busy_s * 1e3,
+           "ddp_step_range_device_ms": xprof.range_seconds(events, "ddp_step") * 1e3,
+           "ddp_step_range_device_ms_trace_file": xprof.range_seconds(file_events,
+                                                                     "ddp_step") * 1e3,
+           "gpu_user_annotation_events": sum(e["cat"] == "gpu_user_annotation" for e in events),
+           "trace_file_mb": os.path.getsize(trace) / 1e6, "nvidia_smi": smi}
+    if out["backend"] != "nccl":
+        failures.append(("ddp world of 1", "backend", out["backend"]))
+    if not (file_busy_s > 0 and abs(file_busy_s - busy_s) <= 0.01 * busy_s):
+        failures.append(("xprof: the trace file and the live profile differ", busy_s, file_busy_s))
+    if not by_cat.get("custom-call"):
+        failures.append(("xprof: no custom-call kernels in the profile", by_cat))
+    del bare, ddp
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def remat_check(failures, prepare_stage2_batch, stage2_loss):
+    """(e): remat on against off at B=8, 592x592: float32 losses and
+    gradients on the same weights, batch and match; then bfloat16 Trainer
+    steps with each, their time, peak memory and launches."""
+    from countdetr_tpu_torch.config import TrainConfig, stage2_config
+    from countdetr_tpu_torch.models.anchor_detr import build_model
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rng = np.random.default_rng(31)
+    batch = train_batch(rng, DDP_BATCH, DDP_SIZE, DDP_T[0], n_valid_first=40)
+    tcfg = TrainConfig()
+    res, match, base = {}, None, None
+    for remat in (False, True):
+        model = build_model(stage2_config(**DDP_MODEL, remat=remat), device=DDP_DEVICE,
+                            seed=0, state_dict=base).train()
+        base = model.state_dict() if base is None else base
+        total, parts, match = stage2_loss(model, prepare_stage2_batch(batch, DDP_DEVICE), tcfg,
+                                          match=match)
+        total.backward()
+        res[remat] = ({k: v.item() for k, v in parts.items()},
+                      {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                       if p.grad is not None})
+        del model, total
+    (p0, g0), (p1, g1) = res[False], res[True]
+    loss_err = max(relative(p1[k], p0[k]) for k in p0)
+    grad_err = max(((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30)).item()
+                   for k in g0)
+    out = {"dtype_check": "float32", "loss_max_rel_err": loss_err, "grad_max_rel_err": grad_err,
+           "grad_tol": REMAT_GRAD_TOL, "grad_tensors": len(g0), "same_tensors": set(g0) == set(g1)}
+    if not (loss_err <= 1e-6 and grad_err <= REMAT_GRAD_TOL and set(g0) == set(g1)):
+        failures.append(("remat vs no remat", loss_err, grad_err))
+    del res, g0, g1
+    torch.cuda.empty_cache()
+    steps = {}
+    launches = None
+    for remat in (False, True, True, False):
+        tr = Trainer(stage2_config(**DDP_MODEL, compute_dtype="bfloat16", remat=remat), tcfg,
+                     device=DDP_DEVICE, state_dict=base)
+        tr.step(batch)  # warm-up
+        _sync(DDP_DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernels)
+        ms = []
+        for _ in range(REMAT_STEPS):
+            t = time.perf_counter()
+            tr.step(batch)
+            _sync(DDP_DEVICE)
+            ms.append((time.perf_counter() - t) * 1e3)
+        counts = launch_counts(*kernels)
+        s = steps.setdefault("on" if remat else "off", {"step_ms": [], "peak_memory_gb": []})
+        s["step_ms"] += ms
+        s["peak_memory_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        s["launches_per_step"] = {k: v // REMAT_STEPS for k, v in counts.items()}
+        if remat:
+            launches = counts
+        s["device_busy_ms"] = profile_calls(lambda: tr.step(batch), 1, top=3)["device_busy_ms"]
+        del tr
+        torch.cuda.empty_cache()
+    for s in steps.values():
+        s["step_ms_median"] = float(np.median(s["step_ms"]))
+    out["bf16_steps"] = steps
+    out["time_ratio_on_off"] = steps["on"]["step_ms_median"] / steps["off"]["step_ms_median"]
+    out["device_ratio_on_off"] = (steps["on"]["device_busy_ms"]
+                                  / max(steps["off"]["device_busy_ms"], 1e-9))
+    out["memory_ratio_on_off"] = (max(steps["on"]["peak_memory_gb"])
+                                  / max(steps["off"]["peak_memory_gb"]))
+    want_on = {"rcda": 24, "rcda_rank1": 0, "mha": 12, "auction": 1}
+    if steps["on"]["launches_per_step"] != want_on:
+        failures.append(("remat launches", steps["on"]["launches_per_step"], want_on))
+    return out, launches
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -2239,6 +2834,8 @@ def main(argv=None) -> int:
             defaults_phase(np.random.default_rng(8), smi, failures)
         if "longtail" in args.only:
             longtail_phase(g, smi, failures, args.out)
+        if "ddp" in args.only:
+            ddp_phase(smi, failures)
         if "convergence" in args.only:
             convergence_phase(smi, failures, args.out)
         if failures:
@@ -2390,6 +2987,15 @@ def main(argv=None) -> int:
                      for k in ("rcda", "rcda_rank1", "mha", "auction")}
     failures += [("longtail path launched no", k) for k, n in longtail_main.items() if n == 0]
 
+    # 12. data parallelism: a world of 2 on the shared card against one
+    # process, a world of 1 over NCCL, the uneven epoch, the world's
+    # checkpoint in one process, remat
+    ddp_paths = ddp_phase(smi, failures)
+    for path in ("ddp_rank0", "ddp_rank1", "ddp_world1_nccl", "remat"):
+        counts_ = ddp_paths.get(path, {})
+        failures += [(f"{path} path launched no", k) for k in ("rcda", "mha", "auction")
+                     if not counts_.get(k)]
+
     # pseudo_label: one timed run of each variant together (the phase line
     # has them apart)
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
@@ -2400,6 +3006,7 @@ def main(argv=None) -> int:
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
     paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})
     paths.update({f"longtail_{name}": counts_ for name, counts_ in longtail_launches.items()})
+    paths.update(ddp_paths)
 
     def summary(key, replaces, source, cases, main_case, main_count):
         return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -2503,10 +3110,12 @@ def profile_calls(fn, calls, top=12):
 
 
 def profile_run(fn, top=12):
-    """(fn(), its profile): device time by kernel name (torch.profiler), the
+    """(fn(), its profile): device time by kernel name and category
+    (torch.profiler, read by countdetr_tpu_torch/utils/xprof.py), the
     device's busy share of the wall time and the largest entries."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from countdetr_tpu_torch.utils import xprof
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -2514,21 +3123,16 @@ def profile_run(fn, top=12):
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    rows = []
-    for e in p.key_averages():
-        # kernels only: not the ops launching them, not record_function ranges
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
+    # kernels, copies and memsets: not the ops launching them, not
+    # record_function ranges
+    table, busy_s = xprof.op_table(xprof.events_from_profiler(p))
+    rows = sorted(table.items(), key=lambda kv: kv[1][0], reverse=True)
+    busy_us = busy_s * 1e6
     return out, {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-        "top": [{"name": k[:90], "ms": us / 1e3, "calls": c} for us, k, c in rows[:top]],
+        "top": [{"name": k[:90], "ms": sec * 1e3, "calls": n, "category": cat}
+                for k, (sec, n, cat) in rows[:top]],
     }
 
 

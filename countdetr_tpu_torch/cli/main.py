@@ -27,6 +27,16 @@ The combinations the JAX model cannot build exit with the reason
 (``ModelConfig.check_options``): --num_feature_levels other than 1 or 3,
 levels with stage 2's exemplar aggregation, with --masks, with standard
 attention or without --dilation.
+
+Data parallelism: ``torchrun --nproc_per_node=N -m countdetr_tpu_torch.cli.main
+...`` trains on N processes, each on its card (cuda:LOCAL_RANK; NCCL, or
+gloo where processes share a card, core/mesh.py) and its slice of each
+global batch of N x --batch_size samples, with the losses of the global
+batch (train/train_step.py); --eval runs the same way. Rank 0 prints,
+writes log.txt and the checkpoints. The inference modes (--infer, --test,
+--generate_pseudo_label) have no process stride, as in the JAX CLI: in a
+world of more than one process they exit with the reason; run them in
+one.
 """
 
 from __future__ import annotations
@@ -40,7 +50,10 @@ import numpy as np
 
 from countdetr_tpu_torch.cli import offline_eval
 from countdetr_tpu_torch.config import RCDA_VARIANTS, Config, DataConfig, ModelConfig, TrainConfig
-from countdetr_tpu_torch.core.mesh import gather_metrics, init_distributed, is_main_process
+from countdetr_tpu_torch.core.mesh import (
+    gather_metrics, init_distributed, is_main_process, local_device, process_count,
+    process_index, shutdown,
+)
 from countdetr_tpu_torch.data.batching import Batcher
 from countdetr_tpu_torch.models.anchor_detr import build_model
 from countdetr_tpu_torch.train import checkpoints as ckpt
@@ -359,7 +372,7 @@ def _numeric(v) -> bool:
 def main(args):
     """Run the mode ``args`` selects. Returns the offline metrics, the infer
     metrics by split, the eval losses, or in training the Trainer."""
-    init_distributed()
+    init_distributed(args.device)
     if is_main_process():
         print(get_sha())
     set_matmul_precision(args.matmul_precision)
@@ -375,14 +388,20 @@ def main(args):
         metrics = offline_eval.evaluate_predictions(
             args.evaluate_predictions, cfg.data.data_path, dataset=cfg.data.dataset,
             split=args.eval_split)
-        print(json.dumps(metrics, indent=2))
+        if is_main_process():
+            print(json.dumps(metrics, indent=2))
         return metrics
 
     refuse_unsupported(args, cfg)
+    if process_count() > 1 and (args.generate_pseudo_label or args.test or args.infer):
+        raise SystemExit(
+            f"--infer, --test and --generate_pseudo_label run in one process: they have no "
+            f"process stride (nor in the JAX CLI), and this is a world of {process_count()}")
+    device = local_device(args.device)
     B, buckets = cfg.data.batch_size, cfg.data.buckets
     loader_kw = dict(batch_size=B, buckets=buckets, max_points=cfg.data.max_points,
                      num_workers=cfg.data.num_workers, pack_s2d=cfg.data.pack_s2d)
-    model = build_model(cfg.model, device=args.device, seed=cfg.train.seed)
+    model = build_model(cfg.model, device=device, seed=cfg.train.seed)
 
     # weights for the modes that read them; in training, a --resume
     # directory restores the optimizer, scheduler and epoch too (below)
@@ -392,12 +411,14 @@ def main(args):
         if path.endswith(".pth"):
             # strict: a reference key the mapping leaves unconsumed raises here
             model.load_state_dict(ckpt.load_torch_checkpoint(path, model))
-            print(f"imported torch checkpoint {path}")
+            if is_main_process():
+                print(f"imported torch checkpoint {path}")
         elif not (training_mode and args.resume and not args.checkpoint_path):
             step = ckpt.latest_step(path)
             if step is not None:
                 ckpt.restore_weights(path, step, model)
-                print(f"restored {path} step {step}")
+                if is_main_process():
+                    print(f"restored {path} step {step}")
 
     if args.generate_pseudo_label:
         lvis = cfg.data.dataset == "fscd_lvis"
@@ -457,8 +478,10 @@ def main(args):
         # the criterion over the val split (reference main.py:240-247)
         val_ds = build_dataset(args.dataset_file, "val", cfg, pseudo=cfg.model.stage == 2)
         vb = Batcher(val_ds, B, buckets, max_points=cfg.data.max_points,
-                     max_boxes=cfg.data.max_boxes, pack_s2d=cfg.data.pack_s2d)
-        trainer = Trainer(cfg.model, cfg.train, device=args.device, state_dict=model.state_dict())
+                     max_boxes=cfg.data.max_boxes, pack_s2d=cfg.data.pack_s2d,
+                     **stride())
+        trainer = Trainer(cfg.model, cfg.train, device=device, state_dict=model.state_dict(),
+                          distributed=process_count() > 1)
         del model
         vstats = engine.evaluate(trainer, vb)
         vstats = gather_metrics(vstats, weight=vstats.pop("real_samples", 1.0))
@@ -487,10 +510,13 @@ def _train(args, cfg: Config, model):
     d = cfg.data
     batcher = Batcher(train_ds, d.batch_size, d.buckets, max_points=d.max_points,
                       max_boxes=d.max_boxes, shuffle=True, seed=cfg.train.seed,
-                      box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d)
-    # the exact steps an epoch, so a StepLR boundary lands on an epoch edge
-    trainer = Trainer(cfg.model, cfg.train, device=args.device, state_dict=model.state_dict(),
-                      steps_per_epoch=max(batcher.num_batches(), 1))
+                      box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d,
+                      **stride())
+    # the exact steps an epoch (the same on every rank: the schedule is
+    # global), so a StepLR boundary lands on an epoch edge
+    trainer = Trainer(cfg.model, cfg.train, device=next(model.parameters()).device,
+                      state_dict=model.state_dict(), steps_per_epoch=max(batcher.num_batches(), 1),
+                      distributed=process_count() > 1)
     del model
     start_epoch = args.start_epoch
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
@@ -507,7 +533,9 @@ def _train(args, cfg: Config, model):
             return False
         meta = ckpt.restore_checkpoint(directory, step, trainer)
         start_epoch = meta.get("epoch", 0) + 1
-        print(f"{label}: continuing at epoch {start_epoch}, optimizer step {meta['opt_step']}")
+        if is_main_process():
+            print(f"{label}: continuing at epoch {start_epoch}, optimizer step "
+                  f"{meta['opt_step']}")
         return True
 
     resumed = args.auto_resume and full_restore(ckpt_dir, "auto-resumed")
@@ -518,12 +546,13 @@ def _train(args, cfg: Config, model):
     # built once: a Batcher per epoch would start a new worker pool each time
     vb = None if val_ds is None else Batcher(
         val_ds, d.batch_size, d.buckets, max_points=d.max_points, max_boxes=d.max_boxes,
-        box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d)
+        box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d, **stride())
     steps_done = 0
     try:
         for epoch in range(start_epoch, cfg.train.epochs):
             if cfg.train.max_steps and steps_done >= cfg.train.max_steps:
-                print(f"max_steps {cfg.train.max_steps} reached; stopping")
+                if is_main_process():
+                    print(f"max_steps {cfg.train.max_steps} reached; stopping")
                 break
             prof = None
             if args.profile and epoch == start_epoch and is_main_process():
@@ -573,6 +602,11 @@ def _train(args, cfg: Config, model):
     return trainer
 
 
+def stride() -> dict:
+    """A Batcher's process stride: this rank's slice of each global batch."""
+    return {"process_index": process_index(), "process_count": process_count()}
+
+
 def _start_profile(device):
     from torch.profiler import ProfilerActivity, profile
 
@@ -584,7 +618,10 @@ def _start_profile(device):
 
 def cli_entry():
     parser = argparse.ArgumentParser("Counting-DETR on CUDA", parents=[get_args_parser()])
-    main(parser.parse_args())
+    try:
+        main(parser.parse_args())
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 ``ModelConfig``, ``DataConfig``, ``TrainConfig``, ``Config``,
 ``stage1_config`` and ``stage2_config`` (countdetr_tpu/config.py).
 
-Left out: the TPU-only knobs (use_pallas_rcda, param_dtype, remat, the
-COUNTDETR_* environment switches other than the RCDA variant) and
-``TrainConfig.mesh_shape``/``mesh_axes``: the port runs one process on one
-card (core/mesh.py), and data parallelism is queued in ROADMAP.md."""
+Left out: the TPU-only knobs (use_pallas_rcda, param_dtype and the
+COUNTDETR_* environment switches other than the RCDA variant).
+``TrainConfig.mesh_shape``/``mesh_axes`` take only the data axis over the
+processes (core/mesh.py): tensor parallelism, a "model" axis, is not
+ported (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -59,6 +60,10 @@ class ModelConfig:
     # (csrc/rcda_rank1.cu). The counterpart of the JAX package's
     # COUNTDETR_PALLAS_VARIANT (countdetr_tpu/ops/rcda.py), same values.
     rcda_variant: str = "v3"
+    # recompute each encoder and decoder layer's activations in the backward
+    # instead of keeping them (torch.utils.checkpoint; the JAX package's
+    # nn.remat): less memory, one more forward of those layers
+    remat: bool = False
 
     def __post_init__(self):
         if self.rcda_variant not in RCDA_VARIANTS:
@@ -184,6 +189,11 @@ class TrainConfig:
     checkpoint_keep_every: int = 10
     async_checkpoint: bool = True  # AsyncSaver; False blocks on each save
     log_every: int = 100  # steps
+
+    # parallelism: one "data" axis over the processes (-1: all of them);
+    # core/mesh.py::check_mesh refuses anything else
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

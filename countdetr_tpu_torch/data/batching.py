@@ -2,10 +2,8 @@
 image into its (H, W) bucket, space-to-depth pack a batch, pad points and
 boxes to capacities with validity masks, group samples into batches
 (``Batcher``: shuffled or not, samples loaded in this process or in a
-worker pool, data/loader.py) and prefetch them on a thread. Pure numpy.
-
-Left out against the JAX package, for data parallelism: the multi-process
-global schedule (``process_index``/``process_count``).
+worker pool, data/loader.py, one slice of each global batch a process
+under data parallelism) and prefetch them on a thread. Pure numpy.
 """
 
 from __future__ import annotations
@@ -123,7 +121,17 @@ class Batcher:
     drawn from ``np.random.default_rng(seed + epoch)``, where ``epoch``
     counts the epochs begun (each ``iter`` starts the next); full groups
     are emitted as they fill, the partial ones at the end unless
-    ``drop_remainder``; ``step_cap`` cuts the schedule. ``num_workers`` > 0
+    ``drop_remainder``; ``step_cap`` cuts the schedule.
+
+    Data parallelism (``process_index`` of ``process_count``): every process
+    computes the same GLOBAL schedule, of batches of ``batch_size *
+    process_count`` samples, and takes its own ``batch_size`` slice of each.
+    So every process runs the same number of steps with the same (bucket,
+    capacity) shapes, a world of W trains on exactly the global batches
+    that one process with batch ``batch_size * W`` would, and no sample is
+    skipped: a partial global batch is padded by repeating its last sample,
+    and a process whose slice lies past the real samples gets a batch of
+    that repeated sample with ``batch_valid`` all False. ``num_workers`` > 0
     loads the samples in a persistent pool of that many spawned processes
     (data/loader.py), with the same batches as the serial path;
     ``close()`` stops it.
@@ -143,6 +151,8 @@ class Batcher:
         box_tiers: Optional[Sequence[int]] = None,
         num_workers: int = 0,
         pack_s2d: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.ds = dataset
         self.bs = batch_size
@@ -159,6 +169,8 @@ class Batcher:
         self.num_workers = num_workers
         self._loader = None  # the worker pool, started by the first iter
         self.pack_s2d = pack_s2d
+        self.process_index = process_index
+        self.process_count = process_count
         self._warned_truncation = False
         # (bucket, n_points, n_boxes) per sample index, epoch-invariant
         self._meta_cache: Dict[int, Tuple] = {}
@@ -178,7 +190,8 @@ class Batcher:
             warnings.warn(
                 f"Batcher: sample has {n} {kind} but capacity is {cap}; the extra "
                 f"{kind} are dropped from the padded arrays (meta keeps n_{kind}). "
-                f"Raise max_{kind} or use {kind[:-1]}_tiers to keep them all.",
+                f"Raise max_{kind} or use {'point' if kind == 'points' else 'box'}_tiers to keep "
+                f"them all.",
                 stacklevel=3,
             )
 
@@ -272,12 +285,14 @@ class Batcher:
         return m
 
     def _schedule(self) -> List[Tuple[Tuple, List[int], int]]:
-        """The current epoch's batches: [(key, indices, n_real)] with key =
-        (bucket, point capacity, box capacity); indices has batch_size
-        entries, a partial group padded by repeating its last sample."""
+        """The current epoch's global batches: [(key, indices, n_real)] with
+        key = (bucket, point capacity, box capacity); indices has
+        batch_size * process_count entries, a partial group padded by
+        repeating its last sample. The same in every process."""
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        gbs = self.bs * self.process_count
         sched: List[Tuple[Tuple, List[int], int]] = []
         pending: Dict[Tuple, List[int]] = {}
         for i in order.tolist():
@@ -285,17 +300,27 @@ class Batcher:
             key = (bucket, self._capacity(n_pts, self.max_points, self.point_tiers),
                    self._capacity(n_boxes, self.max_boxes, self.box_tiers))
             pending.setdefault(key, []).append(i)
-            if len(pending[key]) == self.bs:
-                sched.append((key, pending.pop(key), self.bs))
+            if len(pending[key]) == gbs:
+                sched.append((key, pending.pop(key), gbs))
         if not self.drop_remainder:
             for key, rest in pending.items():
-                sched.append((key, rest + [rest[-1]] * (self.bs - len(rest)), len(rest)))
+                sched.append((key, rest + [rest[-1]] * (gbs - len(rest)), len(rest)))
         if self.step_cap is not None:
             sched = sched[:self.step_cap]
         return sched
 
+    def plan(self) -> List[Tuple[Tuple, List[int], int]]:
+        """This process's slices of the current epoch's global batches:
+        [(key, indices, n_real)], indices the batch_size entries from
+        process_index * batch_size on, n_real how many of them are real
+        (the padding is a suffix of the global batch, so the real ones are a
+        prefix of the slice; 0 for a slice wholly past them)."""
+        lo = self.process_index * self.bs
+        return [(key, idxs[lo:lo + self.bs], max(0, min(self.bs, n_real - lo)))
+                for key, idxs, n_real in self._schedule()]
+
     def __iter__(self) -> Iterator[Dict]:
-        plan = self._schedule()
+        plan = self.plan()
         self.epoch += 1
         if self.num_workers > 0 and plan:
             from countdetr_tpu_torch.data.loader import SampleLoader, iter_batches_parallel
@@ -305,16 +330,19 @@ class Batcher:
             yield from iter_batches_parallel(self, plan)
             return
         for (bucket, pt_cap, box_cap), idxs, n_real in plan:
-            samples = [self.ds[i] for i in idxs[:n_real]]
+            # the padding repeats the last sample loaded: an all-padding
+            # slice loads its first entry, the global batch's last real one
+            samples = [self.ds[i] for i in idxs[:max(n_real, 1)]]
             yield self._assemble(samples, bucket, pt_cap, box_cap, n_real)
 
     def __len__(self) -> int:
         return self.num_batches()
 
     def num_batches(self) -> int:
-        """The batches of the current epoch. Without ``step_cap`` the count
-        does not depend on the shuffle: each key gives ceil(n / batch_size)
-        batches (floor with ``drop_remainder``)."""
+        """The batches of the current epoch, the same in every process.
+        Without ``step_cap`` the count does not depend on the shuffle: each
+        key gives ceil(n / (batch_size * process_count)) batches (floor with
+        ``drop_remainder``)."""
         return len(self._schedule())
 
     def close(self):

@@ -110,13 +110,15 @@ class SampleLoader:
 
 
 def iter_batches_parallel(batcher, plan: List[Tuple]):
-    """Assembled batches of a Batcher epoch plan [(key, indices, n_real)],
-    the real samples loaded by the Batcher's SampleLoader while this
-    process assembles."""
+    """Assembled batches of a Batcher epoch plan [(key, indices, n_real)]
+    (this process's slices, ``Batcher.plan``), the samples loaded by the
+    Batcher's SampleLoader while this process assembles: the real ones, or
+    for a slice of padding alone its first entry, which the padding
+    repeats."""
     flat: List[int] = []
     for _, idxs, n_real in plan:
-        flat.extend(idxs[:n_real])
+        flat.extend(idxs[:max(n_real, 1)])
     it = batcher._loader.iter_samples(flat)
     for (bucket, pt_cap, box_cap), _, n_real in plan:
-        samples = [next(it) for _ in range(n_real)]
+        samples = [next(it) for _ in range(max(n_real, 1))]
         yield batcher._assemble(samples, bucket, pt_cap, box_cap, n_real)

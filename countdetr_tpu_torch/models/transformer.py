@@ -26,6 +26,15 @@ the FFN's activation and on its output, and on every attention block's
 output. Its keep masks come from the ``torch.Generator`` a caller passes
 (the counterpart of the JAX package's 'dropout' rng); without one the
 layers are deterministic.
+
+With ``remat`` each encoder and decoder layer (not a level layer, as in
+the JAX package's nn.remat) runs under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward instead of
+kept. The recompute draws the same dropout masks as the forward: the
+generator's state is saved before the layer and restored for the
+recompute (checkpoint's own ``preserve_rng_state`` covers the default
+generators only, not a ``torch.Generator`` passed in). The attention
+kernels run twice a layer then: the forward, and the recompute's forward.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from countdetr_tpu_torch.config import ModelConfig
 from countdetr_tpu_torch.ops import rcda as rcda_ops
@@ -60,6 +70,28 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def remat(layer: nn.Module, *args, generator: Optional[torch.Generator] = None):
+    """``layer(*args, generator=generator)`` with its activations recomputed
+    in the backward (non-reentrant checkpoint); the recompute restores the
+    generator to its state at the call, so it draws the forward's masks,
+    and leaves it where the forward left it."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if start is None or len(calls) == 1:
+            return layer(*a, generator=generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, generator=generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Linear(nn.Linear):
@@ -349,9 +381,12 @@ class Transformer(nn.Module):
             pos2d = torch.stack([pos_row[:, None, :].expand(n, H, W),
                                  pos_col[:, :, None].expand(n, H, W)], dim=-1)
             posemb_2d = self.adapt_pos2d(pos2posemb2d(pos2d, C // 2).to(dt))  # (B, H, W, C)
+        # remat wraps the encoder and decoder layers, when there is a backward
+        run = remat if cfg.remat and torch.is_grad_enabled() else (
+            lambda layer, *a, generator: layer(*a, generator=generator))
         x = src
         for i, layer in enumerate(self.encoder_layers):
-            x = layer(x, pad_mask, posemb_row, posemb_col, posemb_2d, generator=generator)
+            x = run(layer, x, pad_mask, posemb_row, posemb_col, posemb_2d, generator=generator)
             if i < len(self.encoder_layers_level):
                 x5 = x.reshape(nlv, B, H, W, C).transpose(0, 1)
                 x5 = self.encoder_layers_level[i](x5, self.level_embed.weight, generator)
@@ -374,8 +409,8 @@ class Transformer(nn.Module):
 
         out, per_layer = tgt, []
         for i, layer in enumerate(self.decoder_layers):
-            out = layer(out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
-                        posemb_row, posemb_col, query_pad, posemb_2d, generator=generator)
+            out = run(layer, out, query_pos, query_pos_x, query_pos_y, x, pad_mask,
+                      posemb_row, posemb_col, query_pad, posemb_2d, generator=generator)
             if all_layers or i == len(self.decoder_layers) - 1:
                 per_layer.append(heads(out))
         if all_layers:

@@ -5,6 +5,16 @@ matcher.py:197-247, segmentation.py:198-223).
 
 Everything works on fixed-shape padded tensors with validity masks, so a
 batch needs no per-image loop and no host sync.
+
+Under data parallelism each rank holds one slice of the global batch and
+the criteria take ``reduce``, a ``core.mesh.GlobalSum``: every batch-wide
+normaliser or statistic is then summed over the ranks (the valid counts,
+the matched count, the variance term's matched-mean L1 of (w, h) with its
+gradient, the log-only terms' denominators), and every returned value is
+this rank's share of the global batch's value: the shares sum to what one
+process computes on the whole global batch, as the JAX package computes
+the losses on the global arrays. Without ``reduce`` the values are the
+batch's own.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ def stage1_criterion(
     tgt_points: torch.Tensor,  # (B, Q, 2) normalized point centres (the anchors)
     tgt_whs: torch.Tensor,  # (B, Q, 2) normalized exemplar w, h
     valid: torch.Tensor,  # (B, Q) bool, real queries
+    reduce=None,  # core.mesh.GlobalSum under data parallelism
 ) -> Dict[str, torch.Tensor]:
     """Unweighted stage-1 losses; the queries are the annotated points, so
     there is no matching. loss_wh is the L1 mean over valid elements;
@@ -42,7 +53,8 @@ def stage1_criterion(
     the point as centre, over their count. The caller weighs
     {loss_wh: 1, loss_giou: 0.4}."""
     v = valid.to(pred_wh.dtype)
-    n = v.sum().clamp(min=1.0)
+    n = v.sum()
+    n = (reduce(n) if reduce is not None else n).clamp(min=1.0)
     loss_wh = ((pred_wh - tgt_whs).abs() * v[..., None]).sum() / (2.0 * n).clamp(min=1.0)
     src_boxes = torch.cat([tgt_points, pred_wh], dim=-1)
     tgt_boxes = torch.cat([tgt_points, tgt_whs], dim=-1)
@@ -77,6 +89,7 @@ def stage2_criterion(
     focal_alpha: float = 0.25,
     num_boxes: Optional[torch.Tensor] = None,
     batch_valid: Optional[torch.Tensor] = None,  # (B,) bool, real batch rows
+    reduce=None,  # core.mesh.GlobalSum under data parallelism
 ) -> Dict[str, torch.Tensor]:
     """Unweighted stage-2 losses given an assignment; the caller weighs
     {loss_ce: 2, loss_bbox: 5, loss_giou: 2, loss_variance: 2}."""
@@ -86,9 +99,11 @@ def stage2_criterion(
     matched = match.matched if match.matched is not None else tv
     vf = tv.to(pred_boxes.dtype)
     mf = matched.to(pred_boxes.dtype)
+    world = 1 if reduce is None else reduce.world
     if num_boxes is None:
         # every valid target, matched or not (reference anchor_detr.py:318-325)
-        num_boxes = vf.sum().clamp(min=1.0)
+        num_boxes = vf.sum()
+        num_boxes = (reduce(num_boxes) if reduce is not None else num_boxes).clamp(min=1.0)
 
     # focal classification (reference :166-197). The reference's one-hot
     # has C+1 columns over num_classes=1, so unmatched queries keep an
@@ -111,21 +126,27 @@ def stage2_criterion(
 
     # Laplace variance (reference :264-289): the SCALAR matched-mean L1 of
     # (w, h), divided by each |sigma|, plus |log sigma|
+    # (the global batch's mean: every rank's boxes move every rank's term)
     src_vars = pred_vars.gather(1, tq[..., None].expand(-1, -1, 2))  # (B, T, 2)
-    n_matched = mf.sum().clamp(min=1.0)
-    mean_l1_wh = ((src_boxes[..., 2:] - tgt_boxes[..., 2:]).abs()
-                  * mf[..., None]).sum(dim=(0, 1)) / n_matched  # (2,)
+    n_matched = mf.sum()
+    n_matched = (reduce(n_matched) if reduce is not None else n_matched).clamp(min=1.0)
+    l1_wh = ((src_boxes[..., 2:] - tgt_boxes[..., 2:]).abs() * mf[..., None]).sum(dim=(0, 1))
+    mean_l1_wh = (reduce.with_grad(l1_wh) if reduce is not None else l1_wh) / n_matched  # (2,)
     abs_var = src_vars.abs().clamp(min=1e-8)
     per_t = mean_l1_wh / abs_var + torch.log(abs_var).abs()
     loss_variance = (per_t.sum(-1) * mf).sum() / num_boxes
 
     with torch.no_grad():  # log-only terms (reference :194-211)
         card_pred = (pred_logits.argmax(-1) != C - 1).sum(1)
-        card_err = (card_pred.float() - vf.sum(1).float()).abs().mean()
+        card_err = (card_pred.float() - vf.sum(1).float()).abs()
+        card_err = card_err.mean() if reduce is None else card_err.sum() / (B * world)
         matched_logits = pred_logits.gather(1, tq[..., None].expand(-1, -1, C))
         correct = (matched_logits.argmax(-1) == tgt_labels.long()).float()
-        acc = (correct * mf).sum() / mf.sum().clamp(min=1.0)
-        class_error = 100.0 * (1.0 - acc)
+        correct = (correct * mf).sum()
+        if reduce is None:
+            class_error = 100.0 * (1.0 - correct / n_matched)
+        else:  # this rank's share of the global value, which is exact
+            class_error = 100.0 * (1.0 - reduce(correct) / n_matched) / world
 
     return {
         "loss_ce": loss_ce,

@@ -22,6 +22,14 @@ moves only after that, so a crash mid-write resumes from the previous one.
     meta = restore_checkpoint(out_dir, step, trainer)      # meta["epoch"]
     restore_weights(out_dir, step, model)                  # the weights alone
 
+Under data parallelism rank 0 writes the payload, the meta and
+latest.json, and every rank then waits at a barrier (``finalize`` commits
+first), so no rank reads a directory the writer has not committed; the
+weights are the same on every rank. Every rank restores from the files,
+onto its own device. The payload holds the model's own keys (no DDP
+prefix), so a checkpoint written by a world of any size loads in one
+process and the other way round.
+
 ``load_torch_checkpoint`` reads a reference .pth into the port's
 state_dict; the port's module names are the reference's (weights.py).
 """
@@ -38,6 +46,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from countdetr_tpu_torch.core.mesh import barrier, is_main_process
 
 PAYLOAD = "state.pt"
 
@@ -124,12 +134,17 @@ def gc_checkpoints(directory: str, keep_last: int = 1, keep_every: int = 10,
 
 def save_checkpoint(directory: str, step: int, trainer, extra: Optional[Dict] = None,
                     keep_last: int = 0, keep_every: int = 10):
-    """Write and commit a checkpoint of ``trainer`` (blocks until done).
-    ``keep_last`` > 0 runs ``gc_checkpoints`` after the commit."""
-    directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
-    _write_payload(directory, step, _host_copy(trainer.state_dict()))
-    _write_meta(directory, step, extra, trainer, keep_last, keep_every)
+    """Write and commit a checkpoint of ``trainer`` (blocks until done; on
+    rank 0, the others wait). ``keep_last`` > 0 runs ``gc_checkpoints``
+    after the commit."""
+    try:
+        if is_main_process():
+            directory = os.path.abspath(directory)
+            os.makedirs(directory, exist_ok=True)
+            _write_payload(directory, step, _host_copy(trainer.state_dict()))
+            _write_meta(directory, step, extra, trainer, keep_last, keep_every)
+    finally:
+        barrier()
 
 
 class AsyncSaver:
@@ -138,7 +153,9 @@ class AsyncSaver:
     copies the trainer's state to host memory, so training may go on
     updating it at once, and writes it on a background thread. ``finalize``
     waits for the write and commits it (the meta file, then latest.json);
-    call it after the loop and before reading the directory."""
+    call it after the loop and before reading the directory. Under data
+    parallelism rank 0 writes, and ``finalize`` ends at a barrier of every
+    rank."""
 
     def __init__(self, keep_last: int = 0, keep_every: int = 10):
         self.keep_last = keep_last
@@ -149,6 +166,8 @@ class AsyncSaver:
 
     def save(self, directory: str, step: int, trainer, extra: Optional[Dict] = None):
         self.finalize()
+        if not is_main_process():
+            return
         directory = os.path.abspath(directory)
         os.makedirs(directory, exist_ok=True)
         payload = _host_copy(trainer.state_dict())
@@ -164,18 +183,22 @@ class AsyncSaver:
         self._thread.start()
 
     def finalize(self):
-        """Block until the write in flight is on disk, then commit it.
-        Idempotent; raises the write's error, if it failed."""
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
-        if self._pending is not None:
-            directory, step, extra, trainer = self._pending
-            self._pending = None
-            if self._error is not None:
-                err, self._error = self._error, None
-                raise RuntimeError(f"checkpoint {step} was not written") from err
-            _write_meta(directory, step, extra, trainer, self.keep_last, self.keep_every)
+        """Block until the write in flight is on disk, then commit it, and
+        wait for every rank. Idempotent; raises the write's error, if it
+        failed."""
+        try:
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            if self._pending is not None:
+                directory, step, extra, trainer = self._pending
+                self._pending = None
+                if self._error is not None:
+                    err, self._error = self._error, None
+                    raise RuntimeError(f"checkpoint {step} was not written") from err
+                _write_meta(directory, step, extra, trainer, self.keep_last, self.keep_every)
+        finally:
+            barrier()
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -24,6 +24,14 @@ Batches stream from the Batcher through a prefetch thread. A train step
 queues its work on the card and returns; the host reads the card only when
 the metric logger prints and when the NaN guard reads ``Trainer.bad_steps``
 (every ``min(10, log_every)`` steps and once at the end of the epoch).
+Under data parallelism (a distributed Trainer over Batchers with the
+process stride) ``train_one_epoch`` and ``evaluate`` run the same steps on
+every rank, each on its slice (``real_samples`` counts the rank's own real
+samples, the weight of its means in ``core.mesh.gather_metrics``); the
+step metrics and ``bad_steps`` are the global batch's, so the non-finite
+check raises on every rank at the same step, never on one rank while
+another waits in a collective. The inference loops have no process
+stride (nor do the JAX engine's).
 The inference loops take the model and run it under inference mode, one
 forward and one device-to-host copy per batch. No loop reads masks (nor
 does the JAX engine), so their forwards skip a ``masks`` model's mask head.

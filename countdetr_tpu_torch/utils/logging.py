@@ -4,7 +4,8 @@ distributed reduction).
 
 ``MetricLogger.step`` takes the step's metrics as 0-d tensors on the card
 and reads them (a host sync) only on the steps it prints. Its summary is
-the mean over the printed steps, as in the JAX package.
+the mean over the printed steps, as in the JAX package. Under data
+parallelism every rank reads the same global metrics; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import json
 import time
 from collections import defaultdict, deque
 from typing import Dict
+
+from countdetr_tpu_torch.core.mesh import is_main_process
 
 
 class SmoothedValue:
@@ -55,7 +58,8 @@ class MetricLogger:
             self.update(**{k: float(v) for k, v in metrics.items()})
             rate = self._step / max(time.time() - self._t0, 1e-9)
             parts = "  ".join(f"{k}: {m.avg:.4f}" for k, m in sorted(self.meters.items()))
-            print(f"{self.prefix}[{self._step}] {parts}  ({rate:.2f} it/s)", flush=True)
+            if is_main_process():
+                print(f"{self.prefix}[{self._step}] {parts}  ({rate:.2f} it/s)", flush=True)
 
     def summary(self) -> Dict[str, float]:
         return {k: m.global_avg for k, m in self.meters.items()}

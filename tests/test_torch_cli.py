@@ -16,7 +16,8 @@
   with --masks or with standard attention) exit with a SystemExit that
   says why, before anything is written; a bare ``--stage 2`` trains and
   infers from its checkpoint; the process topology of one process is
-  JAX's;
+  JAX's, and a launcher's world of 4 joins torch.distributed with
+  torchrun's rank and the backend of the device;
 - ``evaluate_predictions``, ``per_image_ap`` and ``analyze_results`` of both
   packages agree to 1e-12 on the same predictions, for FSCD-147 and
   FSCD-LVIS (the same float64 arithmetic on both sides).
@@ -50,8 +51,7 @@ STAGE1 = ["--stage", "1", "--spatial_prior", "defined", "--num_query_pattern", "
 STAGE2 = ["--stage", "2", "--spatial_prior", "grid", "--num_query_position", "600",
           "--num_query_pattern", "1", "--no_aux_loss"]
 # fields one config has and the other has not
-JAX_ONLY = {"model": {"use_pallas_rcda", "param_dtype", "remat"},
-            "data": set(), "train": {"mesh_shape", "mesh_axes"}}
+JAX_ONLY = {"model": {"use_pallas_rcda", "param_dtype"}, "data": set(), "train": set()}
 PORT_ONLY = {"model": {"rcda_variant"}, "data": set(), "train": set()}
 
 
@@ -267,9 +267,20 @@ def test_process_topology_is_single_process_jax(monkeypatch):
     want = jmesh.gather_metrics(want_stats, weight=want_stats.pop("real_samples", 1.0))
     assert got == want and got_stats == want_stats
     assert all(type(v) is float for v in got.values())
+    # a launcher's world of 4 joins torch.distributed (tests/test_torch_ddp.py
+    # runs real worlds): torchrun's environment, the backend by the device
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: calls.append(dict(kw, backend=backend)))
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(SystemExit, match="DDP"):
-        tmesh.init_distributed()
+    with pytest.raises(SystemExit, match="RANK, MASTER_ADDR, MASTER_PORT not set.*torchrun"):
+        tmesh.init_distributed("cpu")
+    monkeypatch.setenv("RANK", "2")
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    assert tmesh.init_distributed("cpu") is True
+    assert calls == [{"backend": "gloo", "init_method": "env://", "world_size": 4, "rank": 2}]
 
 
 @pytest.mark.parametrize("dataset_file", ["fscd_147", "fscd_lvis"])
