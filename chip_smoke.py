@@ -160,11 +160,31 @@ Phases, each printed as one JSON line:
             gradients on the same match, then bfloat16 steps of each, their
             time, peak memory and launches (24 RCDA and 12 MHA a step under
             remat: the recompute launches the forward kernels again);
-Then (after the cli phase, the longtail and ddp phases) the kernels line with each
-path's launch counts (its "launches": the cli phase's pipeline modes), the
-card's
-nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure exits
-non-zero; without a CUDA device nothing is printed on stdout.
+  tp        tensor parallelism at full width (stage2_config: 8 heads, 4 a
+            rank; FFN 1024, 512 a rank), worlds spawned after the build
+            over gloo on the one card: (a) 2 processes, mesh (data=1,
+            model=2), float32: the forward at B=2, 592x592, one image
+            padded, within 1e-4 of one process; 4 Trainer steps on global
+            batches of 8 (T=700 and 128 in turns, image 0 with 40 valid
+            targets), replaying one process's match, against that process:
+            losses and gradient norm within DDP_TOL, weights within the
+            Adam bound, the replicated parameters bit-equal across the
+            ranks, 12 RCDA, 6 MHA and 1 auction launch a step on each rank;
+            (b) 4 processes, mesh (2, 2), 2 steps at B=4 a data rank, the
+            same checks; (c) (b)'s checkpoint, gathered and written by rank
+            0, restored in one process to the world's gathered state
+            (sha256 of each tensor), and the shard-then-gather round trip
+            bit-equal on every rank; (d) RCDA v3, rank-1 and MHA at a model
+            rank's shapes (E=128, 4 heads: RCDA and MHA at B=32, L=1369 and
+            576, bfloat16 and float32; rank-1 at stage 1's B=8 24x42)
+            against their plain versions, timed with their bounds; (e)
+            bfloat16 steps at B=8, (a)'s world against one process (medians
+            of 8, each rank's peak memory);
+Then (after the cli phase, the longtail, ddp and tp phases) the kernels line
+with each path's launch counts (its "launches": the cli phase's pipeline
+modes), the card's nvidia-smi line, and last {"ok": true, "device": {...}}.
+Any failure exits non-zero; without a CUDA device nothing is printed on
+stdout.
 
     python3 chip_smoke.py --only auction rank1   # bring-up: build, then
                                                  # only these kernels' cases
@@ -176,6 +196,7 @@ non-zero; without a CUDA device nothing is printed on stdout.
     python3 chip_smoke.py --only defaults        # likewise, the defaults phase
     python3 chip_smoke.py --only longtail        # likewise, the longtail phase
     python3 chip_smoke.py --only ddp             # likewise, the ddp phase
+    python3 chip_smoke.py --only tp              # likewise, the tp phase
     python3 chip_smoke.py --only convergence     # the learning-loop check
 
 The ``convergence`` phase runs only when asked for:
@@ -203,7 +224,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("engine", "cli", "defaults", "longtail", "ddp", "convergence")  # runnable with --only
+PHASES = ("engine", "cli", "defaults", "longtail", "ddp", "tp", "convergence")  # with --only
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -2717,6 +2738,381 @@ def remat_check(failures, prepare_stage2_batch, stage2_loss):
     return out, launches
 
 
+# ---------------------------------------------------------------- tp
+
+TP_MESHES = ((1, 2), (2, 2))  # (data, model) of the worlds (a) and (b)
+TP_STEPS = {(1, 2): 4, (2, 2): 2}  # float32 steps of each world
+TP_BATCH = 8  # images of a global batch
+TP_PLAN = tuple((41 + i, DDP_T[i % 2]) for i in range(4))  # (seed, T) of each global batch
+TP_BF16_STEPS = 8  # timed bfloat16 steps (e), after 2 of warm-up
+TP_FORWARD_TOL = 1e-4  # float32 forward, world (a) against one process
+TP_JOIN_S = 300
+# the attention kernels at a model rank's shapes: E=256, 8 heads over M=2
+TP_E, TP_HEADS = 128, 4
+
+
+def tp_rank(rank, world, store, spec, out_path):
+    """One rank of a tensor-parallel world, (a) or (b) of tp_phase: started
+    with spawn. Writes its results to ``out_path`` (pickle)."""
+    import pickle
+    import traceback
+
+    res = {"rank": rank}
+    try:
+        sys.path.insert(0, REPO)
+        import torch.distributed as dist
+
+        from countdetr_tpu_torch.config import TrainConfig, stage2_config
+        from countdetr_tpu_torch.core import mesh, tensor_parallel
+        from countdetr_tpu_torch.ops import matching
+        from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+        from countdetr_tpu_torch.train import checkpoints as ckpt
+        from countdetr_tpu_torch.train.train_step import Trainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev, size, (D, M) = spec["device"], spec["size"], spec["mesh"]
+        mesh.init_distributed(dev, init_method=f"file://{store}", rank=rank, world_size=world,
+                              timeout_s=TP_JOIN_S)
+        train = TrainConfig(lr=DDP_LR, mesh_shape=(D, M), mesh_axes=("data", "model"))
+        full = torch.load(spec["weights"])
+        trainer = Trainer(stage2_config(**spec["model"]), train, device=mesh.local_device(dev),
+                          state_dict=full, distributed=True)
+        m = trainer.mesh
+        bs = spec["batch"] // D
+        rows = slice(m.data_index() * bs, (m.data_index() + 1) * bs)
+        res.update(backend=dist.get_backend(), device=str(trainer.device), coords=m.coords)
+        # the shard-then-gather round trip on the card
+        local = {k: v.to(trainer.device) for k, v in full.items()}
+        back = tensor_parallel.gather_params_tp(
+            tensor_parallel.shard_state(local, m.model_index(), M), m)
+        res["round_trip_unequal"] = [k for k in local if not torch.equal(back[k], local[k])]
+        del local, back
+        if spec.get("forward") is not None:  # (a): the float32 forward
+            trainer.model.eval()
+            with torch.no_grad():
+                out = trainer.model(*(torch.from_numpy(a).to(trainer.device)
+                                      for a in spec["forward"]))
+            res["forward"] = {k: out[k].cpu() for k in ("pred_logits", "pred_boxes", "pred_vars")}
+            trainer.model.train()
+        kernels = (rcda_kernel, mha_kernel, auction_kernel)
+        matches = []
+        solve, matching.batched_match = recording_matcher(matches, torch.load(spec["replay"]),
+                                                          rows)
+        reset_launches(*kernels)
+        metrics, step_ms = [], []
+        for seed, T in spec["plan"]:
+            g = ddp_global_batch(seed, T, size, spec["batch"])
+            _sync(dev)
+            t = time.perf_counter()
+            out = trainer.step({k: v[rows] for k, v in g.items()})
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: v.item() for k, v in out.items()})
+        matching.batched_match = solve
+        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(*kernels),
+                   matches=matches)
+        res["replicated"] = state_digest({n: p for n, p in trainer.model.named_parameters()
+                                          if getattr(p, "tp_dim", None) is None})
+        state = trainer.state_dict()  # gathered over the model group: every rank calls it
+        res["model"] = {k: v.detach().cpu() for k, v in state["model"].items()} \
+            if rank == 0 else None
+        del state
+        if spec.get("ckpt"):  # (c): rank 0 writes the gathered state
+            t = time.perf_counter()
+            ckpt.save_checkpoint(spec["ckpt"], trainer.scheduler.last_epoch, trainer,
+                                 {"epoch": 0})
+            res["save_s"] = time.perf_counter() - t
+            res["digest"] = state_digest(ckpt._host_copy(trainer.state_dict()))
+        if spec.get("bf16_plan"):  # (e): bfloat16 step time and peak memory
+            del trainer
+            cuda = torch.device(dev).type == "cuda"
+            if cuda:
+                torch.cuda.empty_cache()
+            t16 = Trainer(stage2_config(**spec["model"], compute_dtype="bfloat16"), train,
+                          device=mesh.local_device(dev), state_dict=full, distributed=True)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for seed, T in spec["bf16_plan"]:
+                g = ddp_global_batch(seed, T, size, spec["batch"])
+                _sync(dev)
+                t = time.perf_counter()
+                t16.step({k: v[rows] for k, v in g.items()})
+                _sync(dev)
+                ms.append((time.perf_counter() - t) * 1e3)
+            res["bf16"] = {"step_ms": ms[2:], "peak_memory_gb":
+                           torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(out_path + ".tmp", out_path)
+    os._exit(1 if "error" in res else 0)
+
+
+def run_world(target, world, work, name, spec, failures):
+    """``world`` spawned processes of ``target`` meeting at a FileStore in
+    ``work``; their pickled results by rank (None where a rank gave none),
+    and the wall seconds. Every process is stopped before it returns."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(work, f"{name}_rank{r}.pkl") for r in range(world)]
+    t = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(r, world, os.path.join(work, f"{name}_store"),
+                                              spec, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + TP_JOIN_S
+    while time.time() < deadline and any(p.is_alive() for p in procs):
+        if any(p.exitcode not in (None, 0) for p in procs):
+            time.sleep(2.0)  # the others' results, if they have them
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    ranks = []
+    for r, o in enumerate(outs):
+        if not os.path.exists(o):
+            failures.append((name, "rank", r, "no result", procs[r].exitcode))
+            ranks.append(None)
+            continue
+        with open(o, "rb") as f:
+            ranks.append(pickle.load(f))
+        if "error" in ranks[-1]:
+            failures.append((name, "rank", r, ranks[-1]["error"][-2000:]))
+    return ranks, time.perf_counter() - t
+
+
+def tp_kernel_cases(g):
+    """(d): RCDA v3 and MHA at a model rank's shapes (E=128, 4 heads) at
+    serving B=32, bfloat16 and float32: RCDA over the 37x37 grid at L=1369
+    (the encoder) and 576 (the decoder's cross-attention), MHA at L=S=1369
+    (standard attention over the grid, image 0's keys padded) and L=S=576
+    (the decoder's self-attention); rank-1 at stage 1's B=8 24x42, L=1008
+    and 700."""
+    from countdetr_tpu_torch.ops.kernels import mha_kernel, rcda_kernel
+
+    kw = dict(E=TP_E, n=TP_HEADS)
+    dts = (torch.bfloat16, torch.float32)
+    cases = {"rcda": [rcda_case(rcda_kernel, g, dt, L, **kw) for dt in dts for L in (1369, 576)],
+             "rcda_rank1": [rcda_case(rcda_kernel, g, dt, L, variant="rank1", **kw,
+                                      **STAGE1_SHAPE) for dt in dts for L in (1008, 700)],
+             "mha": [mha_case(mha_kernel, g, dt, B=32, L=L, key_grid=grid, **kw)
+                     for dt in dts for L, grid in ((1369, (37, 37, 30, 25)), (576, None))]}
+    for c in (c for cs in cases.values() for c in cs):
+        c["path"] = "tp"
+    return cases
+
+
+def tp_phase(g, smi, failures):
+    """Tensor parallelism on the card: (a) a world of 2 over gloo on the one
+    card, mesh (data=1, model=2), float32: the forward against one process,
+    4 Trainer steps against one process's on the same global batches and
+    match; (b) a world of 4, mesh (2, 2), 2 steps at B=4 a data rank against
+    the same process; (c) (b)'s checkpoint, gathered and written by rank 0,
+    restored in one process; (d) the attention kernels at a model rank's
+    shapes against their plain versions; (e) bfloat16 step time and peak
+    memory of (a)'s world against one process. Returns the launch counts of
+    each path and (d)'s cases."""
+    from countdetr_tpu_torch.config import TrainConfig, stage2_config
+    from countdetr_tpu_torch.ops import matching
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.serve import pack_requests
+    from countdetr_tpu_torch.train import checkpoints as ckpt
+    from countdetr_tpu_torch.train.train_step import Trainer
+
+    t_phase = time.perf_counter()
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rec = {"phase": "tp", "meshes": TP_MESHES, "global_batch": TP_BATCH,
+           "bucket": [DDP_SIZE, DDP_SIZE], "targets_per_step": [T for _, T in TP_PLAN],
+           "tol": DDP_TOL, "forward_tol": TP_FORWARD_TOL}
+    paths = {}
+    cases = tp_kernel_cases(g)
+    for kind, cs in cases.items():
+        for c in cs:
+            if not (in_tol(c) and c["finite"] and c.get("dead_row_within_tol", True)):
+                failures.append(("tp kernel", kind, c["shape"], c["dtype"], c["max_abs_err"]))
+    rec["kernels"] = cases
+    work = tempfile.mkdtemp(prefix="tp_")
+    try:
+        # one process: the float32 forward, then the steps on the global batches
+        single = Trainer(stage2_config(**DDP_MODEL), TrainConfig(lr=DDP_LR), device=DDP_DEVICE,
+                         seed=0)
+        perturb_(single.model, 5)
+        weights = os.path.join(work, "weights.pt")
+        torch.save({k: v.detach().cpu() for k, v in single.model.state_dict().items()}, weights)
+        images, masks, rects, _ = pack_requests(
+            make_packed_batch(np.random.default_rng(4), [(DDP_SIZE, DDP_SIZE),
+                                                         (DDP_SIZE * 3 // 4, DDP_SIZE * 7 // 8)]),
+            (DDP_SIZE, DDP_SIZE))
+        single.model.eval()
+        with torch.no_grad():
+            out = single.model(*(torch.from_numpy(a).to(DDP_DEVICE)
+                                 for a in (images, masks, rects)))
+        one_forward = {k: out[k].cpu() for k in ("pred_logits", "pred_boxes", "pred_vars")}
+        single.model.train()
+        single_matches, one, one_ms, one_models = [], [], [], {}
+        solve, matching.batched_match = recording_matcher(single_matches)
+        reset_launches(*kernels)
+        try:
+            for i, (seed, T) in enumerate(TP_PLAN):
+                _sync(DDP_DEVICE)
+                t = time.perf_counter()
+                m = single.step(ddp_global_batch(seed, T, DDP_SIZE, TP_BATCH))
+                _sync(DDP_DEVICE)
+                one_ms.append((time.perf_counter() - t) * 1e3)
+                one.append({k: v.item() for k, v in m.items()})
+                if i + 1 in TP_STEPS.values():
+                    one_models[i + 1] = {k: v.detach().cpu()
+                                         for k, v in single.model.state_dict().items()}
+        finally:
+            matching.batched_match = solve
+        paths["tp_one_process"] = launch_counts(*kernels)
+        torch.save(single_matches, os.path.join(work, "matches.pt"))
+        trainable = {n for n, p in single.model.named_parameters() if p.requires_grad}
+        del single, out
+        torch.cuda.empty_cache()
+
+        # (e)'s batches: 2 of warm-up, then the timed ones, T=700 and 128 in turns
+        bf16_plan = [(60 + i % 2, DDP_T[i % 2]) for i in range(2 + TP_BF16_STEPS)]
+        base = {"weights": weights, "device": DDP_DEVICE, "size": DDP_SIZE, "model": DDP_MODEL,
+                "batch": TP_BATCH, "replay": os.path.join(work, "matches.pt")}
+        worlds = {}
+        for D, M in TP_MESHES:
+            name = f"tp{D}x{M}"
+            n = TP_STEPS[(D, M)]
+            spec = dict(base, mesh=(D, M), plan=TP_PLAN[:n])
+            if (D, M) == TP_MESHES[0]:
+                spec.update(forward=(images, masks, rects), bf16_plan=bf16_plan)
+            else:
+                spec.update(ckpt=os.path.join(work, "ckpt"))
+            ranks, wall = run_world(tp_rank, D * M, work, name, spec, failures)
+            w = {"wall_s": wall}
+            worlds[name] = w
+            if not all(x is not None and "error" not in x for x in ranks):
+                continue
+            tp_world_rec(w, ranks, (D, M), one[:n], one_models[n], trainable, one_forward,
+                         failures)
+            for x in ranks:
+                paths[f"{name}_rank{x['rank']}"] = x["launches"]
+            if "bf16" in ranks[0]:
+                w["bf16"] = [x["bf16"] for x in ranks]
+            if spec.get("ckpt"):  # (c) the world's checkpoint in one process
+                restored = Trainer(stage2_config(**DDP_MODEL), TrainConfig(lr=DDP_LR),
+                                   device=DDP_DEVICE, seed=9)
+                step = ckpt.latest_step(spec["ckpt"])
+                meta = ckpt.restore_checkpoint(spec["ckpt"], step, restored)
+                digest = state_digest(ckpt._host_copy(restored.state_dict()))
+                bad = [k for k in digest
+                       if any(digest[k] != x["digest"].get(k) for x in ranks)]
+                w["checkpoint"] = {"step": step, "opt_step": meta["opt_step"],
+                                   "tensors": len(digest), "mismatched": bad,
+                                   "save_s": [x["save_s"] for x in ranks]}
+                if bad or step != n:
+                    failures.append(("tp checkpoint", bad[:5], step))
+                del restored
+                shutil.rmtree(spec["ckpt"], ignore_errors=True)
+                torch.cuda.empty_cache()
+        rec["worlds"] = worlds
+        rec["step_ms_one_process_b8_f32"] = one_ms
+
+        # (e) one process's bfloat16 steps, the batches (a)'s world timed
+        t16 = Trainer(stage2_config(**DDP_MODEL, compute_dtype="bfloat16"),
+                      TrainConfig(lr=DDP_LR), device=DDP_DEVICE, state_dict=torch.load(weights))
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for seed, T in bf16_plan:
+            b = ddp_global_batch(seed, T, DDP_SIZE, TP_BATCH)
+            _sync(DDP_DEVICE)
+            t = time.perf_counter()
+            t16.step(b)
+            _sync(DDP_DEVICE)
+            ms.append((time.perf_counter() - t) * 1e3)
+        one16 = {"step_ms": ms[2:], "step_ms_median": float(np.median(ms[2:])),
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        a = worlds.get(f"tp{TP_MESHES[0][0]}x{TP_MESHES[0][1]}", {})
+        if "bf16" in a:
+            for r in a["bf16"]:
+                r["step_ms_median"] = float(np.median(r["step_ms"]))
+            rec["bf16_b8"] = {"one_process": one16, "world_ranks": a["bf16"],
+                              "world_over_one": a["bf16"][0]["step_ms_median"]
+                              / one16["step_ms_median"]}
+        del t16
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return paths, cases
+
+
+def tp_world_rec(w, ranks, shape, one, one_model, trainable, one_forward, failures):
+    """A world's results into ``w``, held against one process: the losses and
+    gradient norm, the weights, the replicated parameters across each model
+    group, the round trip, the forward (a), the launches."""
+    D, M = shape
+    name = f"tp{D}x{M}"
+    errs = {}
+    for x in ranks:
+        for got, want in zip(x["metrics"], one):
+            for k, v in want.items():
+                errs[k] = max(errs.get(k, 0.0), relative(got[k], v))
+    w.update(metrics_one_process=one, metrics_rank=[x["metrics"] for x in ranks],
+             max_rel_err=errs, step_ms_rank=[x["step_ms"] for x in ranks],
+             backend=[x["backend"] for x in ranks], coords=[x["coords"] for x in ranks],
+             launches_rank=[x["launches"] for x in ranks])
+    for k in ("loss", "loss_ce", "loss_bbox", "loss_giou", "loss_variance", "grad_norm"):
+        if not errs.get(k, np.inf) <= DDP_TOL:
+            failures.append((name, "world vs one process", k, errs.get(k)))
+    w0 = ranks[0]["model"]
+    werr = max((w0[k] - one_model[k]).abs().max().item() for k in trainable)
+    frozen = max((w0[k] - one_model[k]).abs().max().item() for k in one_model
+                 if k not in trainable)
+    w["weights_max_abs_err"] = {"trainable": werr, "frozen": frozen,
+                                "tol": 2 * len(one) * DDP_LR}
+    if not (werr <= 2 * len(one) * DDP_LR and frozen == 0.0 and set(w0) == set(one_model)):
+        failures.append((name, "weights", werr, frozen))
+    groups = [[ranks[d * M + m] for m in range(M)] for d in range(D)]
+    w["replicated_bit_equal"] = all(x["replicated"] == grp[0]["replicated"]
+                                    for grp in groups for x in grp)
+    w["replicated_tensors"] = len(ranks[0]["replicated"])
+    if not w["replicated_bit_equal"]:
+        failures.append((name, "replicated parameters differ across a model group"))
+    # each rank's own auction on its copy of the outputs, and the metrics
+    w["model_group_metrics_equal"] = all(x["metrics"] == grp[0]["metrics"]
+                                         for grp in groups for x in grp)
+    w["model_group_matches_equal"] = all(
+        all(torch.equal(a, b) for ma, mb in zip(x["matches"], grp[0]["matches"])
+            for a, b in zip(ma, mb))
+        for grp in groups for x in grp)
+    if not (w["model_group_metrics_equal"] and w["model_group_matches_equal"]):
+        failures.append((name, "a model group's ranks differ", w["model_group_metrics_equal"],
+                         w["model_group_matches_equal"]))
+    w["round_trip_unequal"] = [x["round_trip_unequal"] for x in ranks]
+    if any(w["round_trip_unequal"]):
+        failures.append((name, "shard-then-gather", w["round_trip_unequal"]))
+    if "forward" in ranks[0]:
+        w["forward_max_abs_err"] = {
+            k: max((x["forward"][k] - v).abs().max().item() for x in ranks)
+            for k, v in one_forward.items()}
+        if not all(e <= TP_FORWARD_TOL for e in w["forward_max_abs_err"].values()):
+            failures.append((name, "forward", w["forward_max_abs_err"]))
+    n = len(one)
+    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n}
+    for x in ranks:
+        if x["launches"] != want:
+            failures.append((name, "launches", x["rank"], x["launches"], want))
+        if x["backend"] != "gloo":
+            failures.append((name, "backend on a shared card", x["backend"]))
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -2836,6 +3232,8 @@ def main(argv=None) -> int:
             longtail_phase(g, smi, failures, args.out)
         if "ddp" in args.only:
             ddp_phase(smi, failures)
+        if "tp" in args.only:
+            tp_phase(torch.Generator(device="cuda").manual_seed(11), smi, failures)
         if "convergence" in args.only:
             convergence_phase(smi, failures, args.out)
         if failures:
@@ -2996,6 +3394,14 @@ def main(argv=None) -> int:
         failures += [(f"{path} path launched no", k) for k in ("rcda", "mha", "auction")
                      if not counts_.get(k)]
 
+    # 13. tensor parallelism: worlds of 2 and 4 on the shared card, mesh
+    # (1, 2) and (2, 2), against one process; the kernels at a rank's shapes
+    tp_paths, tp_cases = tp_phase(torch.Generator(device="cuda").manual_seed(11), smi, failures)
+    for path in [f"tp{D}x{M}_rank{r}" for D, M in TP_MESHES for r in range(D * M)]:
+        counts_ = tp_paths.get(path, {})
+        failures += [(f"{path} path launched no", k) for k in ("rcda", "mha", "auction")
+                     if not counts_.get(k)]
+
     # pseudo_label: one timed run of each variant together (the phase line
     # has them apart)
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
@@ -3007,6 +3413,7 @@ def main(argv=None) -> int:
     paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})
     paths.update({f"longtail_{name}": counts_ for name, counts_ in longtail_launches.items()})
     paths.update(ddp_paths)
+    paths.update(tp_paths)
 
     def summary(key, replaces, source, cases, main_case, main_count):
         return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -3031,15 +3438,16 @@ def main(argv=None) -> int:
     emit({"kernels": [
         summary("rcda", "countdetr_tpu/ops/pallas/rcda_kernel.py:213 fused_rcda",
                 "countdetr_tpu_torch/csrc/rcda.cu",
-                [c for c in rcda_cases if c["dtype"] == "bfloat16"],
+                [c for c in rcda_cases + tp_cases["rcda"] if c["dtype"] == "bfloat16"],
                 pick(rcda_cases, B=8, L=1008), cli_main["rcda"]),
         summary("rcda_rank1", "countdetr_tpu/ops/pallas/rcda_kernel.py:153 fused_rcda_rank1",
                 "countdetr_tpu_torch/csrc/rcda_rank1.cu",
-                [c for c in rank1_cases if c["dtype"] == "bfloat16"],
+                [c for c in rank1_cases + tp_cases["rcda_rank1"] if c["dtype"] == "bfloat16"],
                 pick(rank1_cases, B=8, L=1008), cli_main["rcda_rank1"]),
         summary("mha", "countdetr_tpu/ops/pallas/mha_kernel.py:64 fused_mha",
                 "countdetr_tpu_torch/csrc/mha.cu",
-                [c for c in mha_cases if c["dtype"] == "bfloat16"] + longtail_mha,
+                [c for c in mha_cases + tp_cases["mha"] if c["dtype"] == "bfloat16"]
+                + longtail_mha,
                 pick(mha_cases, B=8, S=5600), cli_main["mha"]),
         summary("auction", "countdetr_tpu/ops/pallas/auction_kernel.py:130 auction_assign",
                 "countdetr_tpu_torch/csrc/auction.cu",

@@ -51,7 +51,7 @@ import numpy as np
 from countdetr_tpu_torch.cli import offline_eval
 from countdetr_tpu_torch.config import RCDA_VARIANTS, Config, DataConfig, ModelConfig, TrainConfig
 from countdetr_tpu_torch.core.mesh import (
-    gather_metrics, init_distributed, is_main_process, local_device, process_count,
+    gather_metrics, init_distributed, is_main_process, local_device, mesh_dims, process_count,
     process_index, shutdown,
 )
 from countdetr_tpu_torch.data.batching import Batcher
@@ -479,7 +479,7 @@ def main(args):
         val_ds = build_dataset(args.dataset_file, "val", cfg, pseudo=cfg.model.stage == 2)
         vb = Batcher(val_ds, B, buckets, max_points=cfg.data.max_points,
                      max_boxes=cfg.data.max_boxes, pack_s2d=cfg.data.pack_s2d,
-                     **stride())
+                     **stride(cfg.train))
         trainer = Trainer(cfg.model, cfg.train, device=device, state_dict=model.state_dict(),
                           distributed=process_count() > 1)
         del model
@@ -511,7 +511,7 @@ def _train(args, cfg: Config, model):
     batcher = Batcher(train_ds, d.batch_size, d.buckets, max_points=d.max_points,
                       max_boxes=d.max_boxes, shuffle=True, seed=cfg.train.seed,
                       box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d,
-                      **stride())
+                      **stride(cfg.train))
     # the exact steps an epoch (the same on every rank: the schedule is
     # global), so a StepLR boundary lands on an epoch edge
     trainer = Trainer(cfg.model, cfg.train, device=next(model.parameters()).device,
@@ -546,7 +546,8 @@ def _train(args, cfg: Config, model):
     # built once: a Batcher per epoch would start a new worker pool each time
     vb = None if val_ds is None else Batcher(
         val_ds, d.batch_size, d.buckets, max_points=d.max_points, max_boxes=d.max_boxes,
-        box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d, **stride())
+        box_tiers=box_tiers, num_workers=d.num_workers, pack_s2d=d.pack_s2d,
+        **stride(cfg.train))
     steps_done = 0
     try:
         for epoch in range(start_epoch, cfg.train.epochs):
@@ -602,9 +603,11 @@ def _train(args, cfg: Config, model):
     return trainer
 
 
-def stride() -> dict:
-    """A Batcher's process stride: this rank's slice of each global batch."""
-    return {"process_index": process_index(), "process_count": process_count()}
+def stride(train_cfg) -> dict:
+    """A Batcher's process stride: this rank's slice of each global batch,
+    by its index on the mesh's data axis (core/mesh.py: rank = d * M + m)."""
+    D, M = mesh_dims(train_cfg.mesh_shape, train_cfg.mesh_axes)
+    return {"process_index": process_index() // M, "process_count": D}
 
 
 def _start_profile(device):

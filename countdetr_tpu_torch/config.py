@@ -4,9 +4,9 @@
 
 Left out: the TPU-only knobs (use_pallas_rcda, param_dtype and the
 COUNTDETR_* environment switches other than the RCDA variant).
-``TrainConfig.mesh_shape``/``mesh_axes`` take only the data axis over the
-processes (core/mesh.py): tensor parallelism, a "model" axis, is not
-ported (ROADMAP.md Queue 1)."""
+``TrainConfig.mesh_shape``/``mesh_axes`` take the data axis over the
+processes, or the (data, model) mesh of tensor parallelism (core/mesh.py,
+core/tensor_parallel.py)."""
 
 from __future__ import annotations
 
@@ -190,7 +190,8 @@ class TrainConfig:
     async_checkpoint: bool = True  # AsyncSaver; False blocks on each save
     log_every: int = 100  # steps
 
-    # parallelism: one "data" axis over the processes (-1: all of them);
+    # parallelism: ("data",) over the processes (-1: all of them), or
+    # ("data", "model") of shape (D, M), tensor parallelism over M;
     # core/mesh.py::check_mesh refuses anything else
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)

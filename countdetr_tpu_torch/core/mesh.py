@@ -1,38 +1,43 @@
-"""Process topology and data parallelism over torch.distributed
-(countdetr_tpu/core/mesh.py:91, 146-212; reference util/misc.py:399-436,
-main.py:206-208).
+"""Process topology, data parallelism and the (data, model) mesh over
+torch.distributed (countdetr_tpu/core/mesh.py:20-143, 146-212; reference
+util/misc.py:399-436, main.py:206-208).
 
 A world of W processes, one per card, as ``torchrun`` starts them (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT in the environment),
 trains what one process trains on the same global batches:
-  * the Batcher's global schedule gives each rank its slice of every
+  * the Batcher's global schedule gives each data rank its slice of every
     global batch (data/batching.py);
-  * every batch-wide normaliser of the losses is summed over the ranks
+  * every batch-wide normaliser of the losses is summed over the data ranks
     (``GlobalSum``, ops/losses.py), so each rank's loss is its share of the
     global batch's loss: the JAX package's semantics, where the losses are
     computed on the global arrays, and not the reference's per-rank means;
   * the Trainer wraps its loss in DistributedDataParallel (``wrap_ddp``),
-    which averages the gradients;
+    which averages the gradients over the data ranks;
   * metrics are averaged over the ranks, weighted by each rank's real
     samples (``gather_metrics``).
+
+The mesh (``make_mesh``) is ("data",) over every process, or ("data",
+"model") of shape (D, M) = W: tensor parallelism (core/tensor_parallel.py)
+shards the attention heads and the FFN hidden over the M processes of a
+model group, which read the same batch rows; the D model groups are the
+data ranks. Ranks are laid out row-major, as the JAX package's
+``make_mesh`` reshapes its devices: rank = d * M + m.
 
 Backend: NCCL when every process of a host has a card of its own, gloo on
 the CPU and when processes share a card (NCCL refuses two ranks on one
 device). The process's card is ``cuda:LOCAL_RANK`` (modulo the cards
-there are). Only a "data" axis exists: tensor parallelism (the JAX
-package's tp_param_spec / shard_params_tp) is not ported (``TP_ITEM``).
+there are).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-TP_ITEM = 'ROADMAP.md, Queue 1 item 6: "Tensor parallelism, the last module still to port"'
 
 
 def _dist():
@@ -147,23 +152,104 @@ def barrier():
         d.barrier()
 
 
+MESH_AXES = (("data",), ("data", "model"))
+
+
+def mesh_dims(shape: Sequence[int], axes: Sequence[str], world: Optional[int] = None
+              ) -> Tuple[int, int]:
+    """(D, M) of a mesh over ``world`` processes (default: this world);
+    SystemExit unless the axes are ("data",) or ("data", "model") and the
+    shape, with -1 filling one slot, spans the world."""
+    axes, shape = tuple(axes), tuple(int(x) for x in shape)
+    world = process_count() if world is None else world
+    if axes not in MESH_AXES:
+        raise SystemExit(f"mesh_axes {axes}: the port's meshes are ('data',) and "
+                         f"('data', 'model')")
+    if len(shape) != len(axes) or shape.count(-1) > 1 or any(x < 1 and x != -1 for x in shape):
+        raise SystemExit(f"mesh_shape {shape}: one size a mesh axis {axes}, -1 in one slot "
+                         f"at most")
+    known = int(np.prod([x for x in shape if x != -1]))
+    if -1 in shape:
+        if world % known:
+            raise SystemExit(f"mesh_shape {shape}: {known} does not divide the {world} "
+                             f"process(es)")
+        shape = tuple(world // known if x == -1 else x for x in shape)
+    if int(np.prod(shape)) != world:
+        raise SystemExit(f"mesh_shape {shape}: the mesh spans the {world} process(es); "
+                         f"its sizes multiply to {int(np.prod(shape))}")
+    return shape[0], shape[1] if len(shape) == 2 else 1
+
+
 def check_mesh(shape: Sequence[int], axes: Sequence[str]):
-    """SystemExit unless the mesh is the one data axis over the processes:
-    axes ("data",), shape (-1,) or (process_count(),). A "model" axis is
-    tensor parallelism, not ported."""
-    axes, shape = tuple(axes), tuple(shape)
-    if "model" in axes:
-        raise SystemExit(f"mesh_axes {axes}: tensor parallelism (a 'model' axis) is not in the "
-                         f"port; it is {TP_ITEM}")
-    if axes != ("data",):
-        raise SystemExit(f"mesh_axes {axes}: the port has one axis, 'data', over the processes")
-    if len(shape) != 1 or shape[0] not in (-1, process_count()):
-        raise SystemExit(f"mesh_shape {shape}: the 'data' axis spans the {process_count()} "
-                         f"process(es): (-1,) or ({process_count()},)")
+    """SystemExit unless ``make_mesh(shape, axes)`` can be made in this world."""
+    mesh_dims(shape, axes)
 
 
-def wrap_ddp(module: torch.nn.Module, device) -> torch.nn.Module:
-    """``module`` in DistributedDataParallel on ``device``. Buffers are not
+def _rank_lists(D: int, M: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """The ranks of each model group (one a data index d) and of each data
+    group (one a model index m), rank = d * M + m."""
+    return ([[d * M + m for m in range(M)] for d in range(D)],
+            [[d * M + m for d in range(D)] for m in range(M)])
+
+
+def _groups(rank_lists: List[List[int]]):
+    """A process group for each list of ranks, made by every rank in the
+    same order (torch.distributed's rule); returns the one holding this
+    rank."""
+    import torch.distributed as dist
+
+    mine, rank = None, dist.get_rank()
+    for ranks in rank_lists:
+        g = dist.new_group(ranks=ranks, backend=dist.get_backend())
+        if rank in ranks:
+            mine = g
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This process's place on a (data, model) mesh of D x M processes:
+    ``coords`` (d, m), rank = d * M + m. ``model_group`` holds the M ranks
+    of data index d (None at M = 1), ``data_group`` the D ranks of model
+    index m (None at M = 1, where it is the whole world: the default
+    group)."""
+
+    shape: Tuple[int, int]
+    coords: Tuple[int, int]
+    data_group: object = None
+    model_group: object = None
+
+    def data_index(self) -> int:
+        """The Batcher's process_index: this rank's slice of each global batch."""
+        return self.coords[0]
+
+    def data_count(self) -> int:
+        """The Batcher's process_count."""
+        return self.shape[0]
+
+    def model_index(self) -> int:
+        return self.coords[1]
+
+    def model_count(self) -> int:
+        return self.shape[1]
+
+
+def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",)) -> Mesh:
+    """The mesh of this world (``mesh_dims``). With a model axis of M > 1
+    every rank makes the D model groups, then the M data groups, in that
+    order; so every rank calls it at the same point."""
+    D, M = mesh_dims(shape, axes)
+    model_group = data_group = None
+    if M > 1:
+        model_ranks, data_ranks = _rank_lists(D, M)
+        model_group, data_group = _groups(model_ranks), _groups(data_ranks)
+    return Mesh(shape=(D, M), coords=divmod(process_index(), M), data_group=data_group,
+                model_group=model_group)
+
+
+def wrap_ddp(module: torch.nn.Module, device, process_group=None) -> torch.nn.Module:
+    """``module`` in DistributedDataParallel on ``device``, averaging over
+    ``process_group`` (the mesh's data group; None: every rank). Buffers are not
     broadcast each step (the model's are frozen and equal on every rank;
     DDP's construction broadcasts rank 0's parameters and buffers once).
     ``find_unused_parameters``: parameters the loss does not reach (the
@@ -178,21 +264,27 @@ def wrap_ddp(module: torch.nn.Module, device) -> torch.nn.Module:
     if dev.type == "cuda":
         ids = [dev.index if dev.index is not None else torch.cuda.current_device()]
     return DistributedDataParallel(module, device_ids=ids, broadcast_buffers=False,
-                                   find_unused_parameters=True)
+                                   find_unused_parameters=True, process_group=process_group)
 
 
 class GlobalSum:
-    """Sums over every rank, for the losses' batch-wide normalisers
+    """Sums over the data ranks, for the losses' batch-wide normalisers
     (``__call__``, no gradient) and the matched-mean L1 of the variance
     loss (``with_grad``, a differentiable all-reduce whose backward sums
-    the cotangents of every rank). ``world`` is the number of ranks. It
-    makes a process group of its own (with the default group's backend),
-    which keeps these collectives apart from DDP's gradient buckets."""
+    the cotangents of every data rank: each rank's loss reads every rank's
+    sum). ``world`` is the number of data ranks. It makes process groups
+    of its own (with the default group's backend), which keep these
+    collectives apart from DDP's gradient buckets: one over every rank
+    without a mesh or at M = 1, else one a model index m over the mesh's
+    data ranks of m (every rank makes all M, in order)."""
 
-    def __init__(self):
+    def __init__(self, mesh: Optional[Mesh] = None):
         import torch.distributed as dist
 
-        self.group = dist.new_group(backend=dist.get_backend())
+        if mesh is None or mesh.model_count() == 1:
+            self.group = dist.new_group(backend=dist.get_backend())
+        else:
+            self.group = _groups(_rank_lists(*mesh.shape)[1])
         self.world = dist.get_world_size(self.group)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,15 +320,21 @@ def _weighted_reduce(all_vals: np.ndarray) -> np.ndarray:
     return (vals * w).sum(axis=0) / total_w
 
 
-def gather_metrics(metrics: dict, weight: float = 1.0) -> dict:
-    """The weighted cross-process mean of scalar metrics; ``weight`` is the
-    process's real (non-padding) sample count for them, so a rank whose
-    slice of a tail batch is padding weighs less. The values go over the
-    wire as float32 and are reduced in float64 (``_weighted_reduce``), as in
-    the JAX package. One process: the metrics as floats."""
-    if process_count() == 1:
-        return {k: float(v) for k, v in metrics.items()}
+def gather_metrics(metrics: dict, weight: float = 1.0, group=None) -> dict:
+    """The weighted cross-process mean of scalar metrics over ``group``
+    (None: every rank); ``weight`` is the process's real (non-padding)
+    sample count for them, so a rank whose slice of a tail batch is padding
+    weighs less. The values go over the wire as float32 and are reduced in
+    float64 (``_weighted_reduce``), as in the JAX package. One process: the
+    metrics as floats. Under tensor parallelism the whole world gives the
+    data group's mean: the M ranks of a model group hold the same rows and
+    metrics, so every data row weighs M times, all alike; the CLI takes the
+    whole world."""
     import torch.distributed as dist
+
+    n = process_count() if group is None else dist.get_world_size(group)
+    if n == 1:
+        return {k: float(v) for k, v in metrics.items()}
 
     keys = sorted(metrics.keys())
     # NCCL takes tensors on the process's card
@@ -244,7 +342,7 @@ def gather_metrics(metrics: dict, weight: float = 1.0) -> dict:
            else torch.device("cpu"))
     vec = torch.tensor([float(metrics[k]) for k in keys] + [max(weight, 0.0)],
                        dtype=torch.float32, device=dev)
-    parts = [torch.empty_like(vec) for _ in range(process_count())]
-    dist.all_gather(parts, vec)
+    parts = [torch.empty_like(vec) for _ in range(n)]
+    dist.all_gather(parts, vec, group=group)
     all_vals = torch.stack(parts).cpu().numpy()
     return dict(zip(keys, _weighted_reduce(all_vals).tolist()))

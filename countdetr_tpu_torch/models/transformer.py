@@ -35,6 +35,17 @@ generator's state is saved before the layer and restored for the
 recompute (checkpoint's own ``preserve_rng_state`` covers the default
 generators only, not a ``torch.Generator`` passed in). The attention
 kernels run twice a layer then: the forward, and the recompute's forward.
+
+Tensor parallelism (core/tensor_parallel.py): ``shard_params_tp`` gives
+``RCDAAttention``, ``MHAttention`` and ``FFN`` their ``tp`` (a
+``ModelShard``) and their local parameters. Each then runs nheads/M heads
+(E/M of each role) or F/M hidden units: its inputs pass through
+``copy_to_model``, its local partial output (``partial``) through
+``reduce_from_model``, and its output bias is added once, after that.
+The FFN's post-activation dropout draws the full-width mask and keeps the
+rank's columns; every other dropout acts on replicated tensors and draws
+the full tensor. So the M ranks of a model group draw from equal
+generator states, the masks of one process.
 """
 
 from __future__ import annotations
@@ -48,6 +59,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from countdetr_tpu_torch.config import ModelConfig
+from countdetr_tpu_torch.core.tensor_parallel import (
+    ModelShard, copy_each_to_model, copy_to_model, reduce_from_model,
+)
 from countdetr_tpu_torch.ops import rcda as rcda_ops
 from countdetr_tpu_torch.ops.boxes import inverse_sigmoid
 from countdetr_tpu_torch.ops.posemb import mask2pos, pos2posemb1d, pos2posemb2d
@@ -59,16 +73,24 @@ from countdetr_tpu_torch.ops.posemb import mask2pos, pos2posemb1d, pos2posemb2d
 WH_BIAS = (0.0, 0.0, -2.0, -2.0)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Optional[ModelShard] = None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): an element is kept with
     probability 1 - rate, drawn from ``generator`` on x's device, and scaled
-    by 1 / (1 - rate). The identity without a generator or at rate 0."""
+    by 1 / (1 - rate). The identity without a generator or at rate 0. With
+    ``shard``, x is model rank ``shard.index``'s block of the last
+    dimension: the mask is drawn at the full width and the rank keeps its
+    block, so the generator moves as in one process."""
     if generator is None or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    n = x.shape[-1]
+    shape = x.shape if shard is None else (*x.shape[:-1], n * shard.count)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(-1, shard.index * n, n)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -132,7 +154,11 @@ def adapt_pos(d_model):
 
 class RCDAAttention(nn.Module):
     """Packed (5E, E) RCDA parameters, as the reference stores them;
-    ``variant`` is the core's formulation (ModelConfig.rcda_variant)."""
+    ``variant`` is the core's formulation (ModelConfig.rcda_variant).
+    Under tensor parallelism (``tp``) the local (5E/M, E) rows hold this
+    rank's heads of each role."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, d_model, num_heads, variant="v3"):
         super().__init__()
@@ -142,18 +168,33 @@ class RCDAAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(5 * d_model))
         self.out_proj = Linear(d_model, d_model)
 
-    def forward(self, query_row, query_col, key_row, key_col, value, key_padding_mask=None):
+    def partial(self, query_row, query_col, key_row, key_col, value, key_padding_mask=None,
+                bias=True):
+        """The output of this module's heads (all of them without ``tp``);
+        the output bias only with ``bias``."""
         dt = query_row.dtype
+        heads = self.num_heads if self.tp is None else self.tp.local(self.num_heads, "nheads")
         return rcda_ops.rcda_attention(
             query_row, query_col, key_row, key_col, value,
             self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
-            self.out_proj.weight.to(dt), self.out_proj.bias.to(dt),
-            self.num_heads, key_padding_mask, self.variant,
+            self.out_proj.weight.to(dt), self.out_proj.bias.to(dt) if bias else None,
+            heads, key_padding_mask, self.variant,
         )
+
+    def forward(self, query_row, query_col, key_row, key_col, value, key_padding_mask=None):
+        if self.tp is None:
+            return self.partial(query_row, query_col, key_row, key_col, value, key_padding_mask)
+        inputs = copy_each_to_model((query_row, query_col, key_row, key_col, value), self.tp)
+        out = reduce_from_model(self.partial(*inputs, key_padding_mask, bias=False), self.tp)
+        return out + self.out_proj.bias.to(out.dtype)
 
 
 class MHAttention(nn.Module):
-    """nn.MultiheadAttention's packed (3E, E) parameters."""
+    """nn.MultiheadAttention's packed (3E, E) parameters; under tensor
+    parallelism (``tp``) the local (3E/M, E) rows hold this rank's heads of
+    q, k and v."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, d_model, num_heads):
         super().__init__()
@@ -162,18 +203,30 @@ class MHAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model)
 
-    def forward(self, query, key, value, key_padding_mask=None):
+    def partial(self, query, key, value, key_padding_mask=None, bias=True):
+        """The output of this module's heads; the output bias only with ``bias``."""
         dt = query.dtype
+        heads = self.num_heads if self.tp is None else self.tp.local(self.num_heads, "nheads")
         return rcda_ops.mha_attention(
             query, key, value, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt),
-            self.out_proj.weight.to(dt), self.out_proj.bias.to(dt),
-            self.num_heads, key_padding_mask,
+            self.out_proj.weight.to(dt), self.out_proj.bias.to(dt) if bias else None,
+            heads, key_padding_mask,
         )
+
+    def forward(self, query, key, value, key_padding_mask=None):
+        if self.tp is None:
+            return self.partial(query, key, value, key_padding_mask)
+        inputs = copy_each_to_model((query, key, value), self.tp)
+        out = reduce_from_model(self.partial(*inputs, key_padding_mask, bias=False), self.tp)
+        return out + self.out_proj.bias.to(out.dtype)
 
 
 class FFN(nn.Module):
     """Post-LN feed-forward block, dropout after the activation and on the
-    output (reference transformer.py:410-424)."""
+    output (reference transformer.py:410-424); under tensor parallelism
+    (``tp``) this rank's F/M hidden units."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, d_model, d_ffn, dropout=0.0):
         super().__init__()
@@ -182,9 +235,21 @@ class FFN(nn.Module):
         self.linear2 = Linear(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
+    def partial(self, x, generator=None, bias=True):
+        """linear2 of this module's hidden units, before the residual and
+        the output dropout; linear2's bias only with ``bias``."""
+        h = dropout(F.relu(self.linear1(x)), self.dropout, generator, self.tp)
+        return F.linear(h, self.linear2.weight.to(h.dtype),
+                        self.linear2.bias.to(h.dtype) if bias else None)
+
     def forward(self, x, generator=None):
-        h = dropout(F.relu(self.linear1(x)), self.dropout, generator)
-        return self.norm2(x + dropout(self.linear2(h), self.dropout, generator))
+        if self.tp is None:
+            y = self.partial(x, generator)
+        else:
+            y = reduce_from_model(self.partial(copy_to_model(x, self.tp), generator, bias=False),
+                                  self.tp)
+            y = y + self.linear2.bias.to(y.dtype)
+        return self.norm2(x + dropout(y, self.dropout, generator))
 
 
 def attention(attention_type, d_model, num_heads, variant):

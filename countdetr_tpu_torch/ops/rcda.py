@@ -11,6 +11,12 @@ picks the RCDA core's formulation, "v3" (two-stage) or "rank1".
 
 Layouts are the JAX package's: (B, L, E) queries or (B, H, W, E) grid
 queries, (B, H, W, E) keys and values, (B, H, W) padding masks (True = pad).
+The projections may be narrower than E: under tensor parallelism a rank's
+packed weights hold its ``num_heads`` heads of each role, (5E/M, E) and
+(3E/M, E), and ``out_proj_weight`` their (E, E/M) columns; the head dim is
+the projections' width over ``num_heads``, and the output is E wide, a
+partial sum the caller reduces (``out_proj_bias`` None leaves the bias to
+it).
 """
 
 from __future__ import annotations
@@ -30,10 +36,10 @@ def rcda_attention(
     key_row: torch.Tensor,  # (B, H, W, E)
     key_col: torch.Tensor,  # (B, H, W, E)
     value: torch.Tensor,  # (B, H, W, E)
-    in_proj_weight: torch.Tensor,  # (5E, E)
-    in_proj_bias: torch.Tensor,  # (5E,)
-    out_proj_weight: torch.Tensor,  # (E, E)
-    out_proj_bias: torch.Tensor,  # (E,)
+    in_proj_weight: torch.Tensor,  # (5E', E), E' = E or a rank's E/M
+    in_proj_bias: torch.Tensor,  # (5E',)
+    out_proj_weight: torch.Tensor,  # (E, E')
+    out_proj_bias: Optional[torch.Tensor],  # (E,) or None
     num_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, H, W) True = pad
     variant: str = "v3",
@@ -43,7 +49,7 @@ def rcda_attention(
     grid_shape = query_row.shape if query_row.dim() == 4 else None
     B, E = query_row.shape[0], query_row.shape[-1]
     H, W = key_row.shape[1], key_row.shape[2]
-    d = E // num_heads
+    d = in_proj_weight.shape[0] // 5 // num_heads
     query_row = query_row.reshape(B, -1, E)
     query_col = query_col.reshape(B, -1, E)
 
@@ -90,18 +96,18 @@ def mha_attention(
     query: torch.Tensor,  # (B, L, E)
     key: torch.Tensor,  # (B, S, E)
     value: torch.Tensor,  # (B, S, E)
-    in_proj_weight: torch.Tensor,  # (3E, E) packed q, k, v
-    in_proj_bias: torch.Tensor,  # (3E,)
-    out_proj_weight: torch.Tensor,  # (E, E)
-    out_proj_bias: torch.Tensor,  # (E,)
+    in_proj_weight: torch.Tensor,  # (3E', E) packed q, k, v; E' = E or E/M
+    in_proj_bias: torch.Tensor,  # (3E',)
+    out_proj_weight: torch.Tensor,  # (E, E')
+    out_proj_bias: Optional[torch.Tensor],  # (E,) or None
     num_heads: int,
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
 ) -> torch.Tensor:
     """Multi-head attention with nn.MultiheadAttention's packed weights (the
     decoder's query self-attention). The key bias is finite (-1e30) and
     float32, so a row whose keys are all masked gets a uniform softmax."""
-    B, L, E = query.shape
-    d = E // num_heads
+    B = query.shape[0]
+    d = in_proj_weight.shape[0] // 3 // num_heads
     wq, wk, wv = in_proj_weight.chunk(3)
     bq, bk, bv = in_proj_bias.chunk(3)
     q = F.linear(query, wq, bq) * d**-0.5

@@ -25,10 +25,13 @@ moves only after that, so a crash mid-write resumes from the previous one.
 Under data parallelism rank 0 writes the payload, the meta and
 latest.json, and every rank then waits at a barrier (``finalize`` commits
 first), so no rank reads a directory the writer has not committed; the
-weights are the same on every rank. Every rank restores from the files,
-onto its own device. The payload holds the model's own keys (no DDP
-prefix), so a checkpoint written by a world of any size loads in one
-process and the other way round.
+weights are the same on every rank. Under tensor parallelism every rank
+first takes ``trainer.state_dict()``, which gathers the full weights and
+moments over each model group, and rank 0 writes those. Every rank
+restores from the files, onto its own device (a tensor-parallel Trainer
+cuts the full tensors to its shard). The payload holds the model's own
+keys (no DDP prefix) and full tensors, so a checkpoint written on a mesh of
+any shape loads in one process and the other way round.
 
 ``load_torch_checkpoint`` reads a reference .pth into the port's
 state_dict; the port's module names are the reference's (weights.py).
@@ -138,10 +141,11 @@ def save_checkpoint(directory: str, step: int, trainer, extra: Optional[Dict] = 
     rank 0, the others wait). ``keep_last`` > 0 runs ``gc_checkpoints``
     after the commit."""
     try:
+        state = trainer.state_dict()  # a collective under tensor parallelism
         if is_main_process():
             directory = os.path.abspath(directory)
             os.makedirs(directory, exist_ok=True)
-            _write_payload(directory, step, _host_copy(trainer.state_dict()))
+            _write_payload(directory, step, _host_copy(state))
             _write_meta(directory, step, extra, trainer, keep_last, keep_every)
     finally:
         barrier()
@@ -154,8 +158,9 @@ class AsyncSaver:
     updating it at once, and writes it on a background thread. ``finalize``
     waits for the write and commits it (the meta file, then latest.json);
     call it after the loop and before reading the directory. Under data
-    parallelism rank 0 writes, and ``finalize`` ends at a barrier of every
-    rank."""
+    parallelism rank 0 writes (every rank calls ``save``: under tensor
+    parallelism the state is gathered first), and ``finalize`` ends at a
+    barrier of every rank."""
 
     def __init__(self, keep_last: int = 0, keep_every: int = 10):
         self.keep_last = keep_last
@@ -166,11 +171,12 @@ class AsyncSaver:
 
     def save(self, directory: str, step: int, trainer, extra: Optional[Dict] = None):
         self.finalize()
+        state = trainer.state_dict()  # a collective under tensor parallelism
         if not is_main_process():
             return
         directory = os.path.abspath(directory)
         os.makedirs(directory, exist_ok=True)
-        payload = _host_copy(trainer.state_dict())
+        payload = _host_copy(state)
 
         def write():
             try:

@@ -6,7 +6,9 @@ momentum 0.9, in two groups: the backbone at ``lr_backbone``, the rest at
 ``lr``. Frozen parameters (the stem, layer1; FrozenBatchNorm tensors are
 buffers) have ``requires_grad=False`` and are in no group. The gradient is
 clipped to ``clip_max_norm`` over the trainable parameters, torch-style
-(max_norm / (norm + 1e-6)). The LR changes per step: StepLR by
+(max_norm / (norm + 1e-6)); under tensor parallelism the norm is the
+global one over the model group's shards and the replicated tensors. The
+LR changes per step: StepLR by
 ``step // steps_per_epoch // lr_drop``, or MultiStepLR over ``lr_drop_epochs``.
 """
 
@@ -51,8 +53,29 @@ def build_scheduler(optimizer: torch.optim.Optimizer, cfg: TrainConfig,
         optimizer, lambda step: lr_factor(step, cfg, steps_per_epoch))
 
 
-def clip_gradients(params, max_norm: float) -> torch.Tensor:
+def clip_gradients(params, max_norm: float, mesh=None) -> torch.Tensor:
     """Scale the gradients by min(1, max_norm / (norm + 1e-6)); returns the
     global norm before clipping, a 0-d tensor on the gradients' device (no
-    host sync)."""
-    return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    host sync). With a ``mesh`` (core/mesh.py::Mesh) of a model axis M > 1,
+    the norm is that of the full gradient: the replicated tensors' squared
+    norm (the same on every model rank) plus the model group's sum of the
+    shards' (the parameters ``shard_params_tp`` marked with ``tp_dim``), one
+    0-d all-reduce; every model rank then scales by the same factor."""
+    params = [p for p in params if p.grad is not None]
+    if mesh is None or mesh.model_count() == 1:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    import torch.distributed as dist
+
+    def sq_norm(ps):
+        grads = [p.grad for p in ps]
+        if not grads:
+            return torch.zeros((), device=params[0].grad.device)
+        return torch.nn.utils.get_total_norm(grads).square()
+
+    sharded = [p for p in params if getattr(p, "tp_dim", None) is not None]
+    shard_sq = sq_norm(sharded)
+    dist.all_reduce(shard_sq, group=mesh.model_group)
+    total = (sq_norm([p for p in params if getattr(p, "tp_dim", None) is None])
+             + shard_sq).sqrt()
+    torch.nn.utils.clip_grads_with_norm_(params, max_norm, total)
+    return total

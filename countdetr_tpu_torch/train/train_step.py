@@ -24,8 +24,8 @@ With ``dropout > 0`` a step draws its masks from a generator seeded by
 (``TrainConfig.seed ^ 0x5EED``, the step), the counterpart of the JAX
 package's ``fold_in(PRNGKey(seed ^ 0x5EED), step)``: a resumed run draws
 the same masks, and a checkpoint carries no generator state. Under data
-parallelism the rank is a third part of the seed, so the ranks draw
-different masks.
+parallelism the data index is a third part of the seed, so the data ranks
+draw different masks, and the model ranks of one data index the same.
 
 Data parallelism (``Trainer(..., distributed=True)`` in a process group,
 core/mesh.py): the model and its loss are one module (``StageLoss``) in
@@ -37,6 +37,20 @@ share times the world size, so that DDP's averaged gradient is the
 global loss's gradient. The step's metrics are the global values (the
 shares summed), equal on every rank, and so is ``bad_steps``: every rank
 takes the same decision on a non-finite loss.
+
+Tensor parallelism (``TrainConfig(mesh_shape=(D, M), mesh_axes=("data",
+"model"))``, distributed, a world of D * M): the Trainer builds the full
+model (from ``seed`` or ``state_dict``) and keeps its model rank's shard
+(core/tensor_parallel.py). The M ranks of a data index feed the same rows
+(the Batcher's stride is ``mesh.data_index()`` of ``mesh.data_count()``)
+and run the replicated parts, the matcher on their bit-equal copies of the
+outputs included, alike. DDP, ``GlobalSum`` and the loss scale span the
+data group only (no DDP at D = 1); the replicated parameters' gradients
+are averaged over the model group (``average_replicated_grads``: the card's
+backward is not bit-reproducible), and the clip takes the norm over shards
+and replicas. ``state_dict`` gathers the full weights and AdamW moments over
+the model group, and ``load_state_dict`` takes full ones and shards them,
+so a checkpoint of any mesh loads on any other.
 
 Batches are dicts in the Batcher's format (numpy or tensors): ``images``
 s2d-packed uint8 (B, H/2, W/2, 12), ``pad_mask`` (B, H, W) bool, optional
@@ -57,7 +71,7 @@ import numpy as np
 import torch
 
 from countdetr_tpu_torch.config import ModelConfig, TrainConfig
-from countdetr_tpu_torch.core import mesh
+from countdetr_tpu_torch.core import mesh, tensor_parallel
 from countdetr_tpu_torch.models.anchor_detr import build_model
 from countdetr_tpu_torch.ops import losses as loss_ops
 from countdetr_tpu_torch.ops import matching
@@ -202,9 +216,11 @@ class Trainer:
     """Holds the model (in train mode), the optimizer, the per-step LR
     schedule and the device-side ``bad_steps`` count. Weights come from
     ``state_dict`` or, without one, from ``seed``. ``distributed``: train
-    data-parallel over the process group (core/mesh.py; see the module's
-    docstring), each rank on its own slice of the global batch; DDP's
-    construction broadcasts rank 0's weights."""
+    over the process group on the mesh of ``train_cfg.mesh_shape`` /
+    ``mesh_axes`` (core/mesh.py; see the module's docstring), each data rank
+    on its own slice of the global batch, each model rank on its shard of
+    the weights; DDP's construction broadcasts the weights of the data
+    group's first rank."""
 
     def __init__(self, cfg: ModelConfig, train_cfg: TrainConfig, device="cuda", seed: int = 0,
                  state_dict: Optional[dict] = None, steps_per_epoch: int = 1,
@@ -212,18 +228,26 @@ class Trainer:
         mesh.check_mesh(train_cfg.mesh_shape, train_cfg.mesh_axes)
         self.cfg = cfg
         self.train_cfg = train_cfg
+        self.mesh = (mesh.make_mesh(train_cfg.mesh_shape, train_cfg.mesh_axes) if distributed
+                     else None)
+        self.tp = self.mesh is not None and self.mesh.model_count() > 1
         self.model = build_model(cfg, device=device, seed=seed, state_dict=state_dict).train()
+        if self.tp:
+            tensor_parallel.shard_params_tp(self.model, self.mesh)
         self.device = next(self.model.parameters()).device
         self.params = trainable_parameters(self.model)
         self.optimizer = build_optimizer(self.model, train_cfg)
         self.scheduler = build_scheduler(self.optimizer, train_cfg, steps_per_epoch)
         self.bad_steps = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.reduce = mesh.GlobalSum() if distributed else None
-        self.world = self.reduce.world if distributed else 1
-        self.rank = mesh.process_index() if distributed else 0
+        # data parallelism over the data group: every rank of a data-only
+        # mesh (a world of 1 too), the D ranks of a model index under TP
+        ddp = distributed and (not self.tp or self.mesh.data_count() > 1)
+        self.reduce = mesh.GlobalSum(self.mesh) if ddp else None
+        self.world = self.reduce.world if ddp else 1
+        self.rank = self.mesh.data_index() if distributed else 0
         self.loss_module = StageLoss(self.model, train_cfg, self.reduce)
-        self._forward = (mesh.wrap_ddp(self.loss_module, self.device) if distributed
-                         else self.loss_module)
+        self._forward = (mesh.wrap_ddp(self.loss_module, self.device, self.mesh.data_group)
+                         if ddp else self.loss_module)
 
     def _prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
         prepare = prepare_stage1_batch if self.cfg.stage == 1 else prepare_stage2_batch
@@ -246,7 +270,10 @@ class Trainer:
             # still decays, as in the JAX package's optimizer
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        metrics["grad_norm"] = clip_gradients(self.params, self.train_cfg.clip_max_norm)
+        if self.tp:  # the model ranks' replicated copies take the same update
+            tensor_parallel.average_replicated_grads(self.params, self.mesh)
+        metrics["grad_norm"] = clip_gradients(self.params, self.train_cfg.clip_max_norm,
+                                              self.mesh)
         self.optimizer.step()
         self.scheduler.step()
         self.bad_steps += (~torch.isfinite(metrics["loss"])).int()
@@ -259,19 +286,47 @@ class Trainer:
         parts = self.loss_module(self._prepare(batch))[1]
         return parts if self.reduce is None else self.reduce.sum_dict(parts)
 
+    def _moments(self, opt_state: Dict, convert) -> Dict:
+        """``opt_state`` with ``convert(name, tensor)`` applied to each
+        parameter's moments (AdamW's exp_avg and exp_avg_sq, SGD's
+        momentum_buffer); the state's ids count the groups' parameters in
+        order."""
+        by_id = {id(p): n for n, p in self.model.named_parameters()}
+        names = [by_id[id(p)] for group in self.optimizer.param_groups for p in group["params"]]
+        state = {i: {k: convert(names[i], v) if isinstance(v, torch.Tensor) and v.dim() else v
+                     for k, v in s.items()}
+                 for i, s in opt_state["state"].items()}
+        return {**opt_state, "state": state}
+
     def state_dict(self) -> Dict:
         """Everything a resumed run needs (train/checkpoints.py): weights and
         buffers, the optimizer's moments and step counts, the scheduler's
         position, ``bad_steps`` and the optimizer step. References to the
-        live tensors, not copies. The model's own keys, without DDP's
-        ``module.`` prefix, so a checkpoint of any world loads in any
-        other."""
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        live tensors, not copies, except under tensor parallelism, where the
+        weights and moments are gathered over the model group (every model
+        rank calls it). The model's own keys, without DDP's ``module.``
+        prefix, so a checkpoint of any mesh loads in any other."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.tp:
+            layout = tensor_parallel.tp_layout(model, self.mesh.model_count())
+            model = tensor_parallel.gather_params_tp(model, self.mesh)
+            opt = self._moments(opt, lambda name, v: tensor_parallel.gather_tensor(
+                v, *layout[name], self.mesh) if name in layout else v)
+        return {"model": model, "optimizer": opt,
                 "scheduler": self.scheduler.state_dict(), "bad_steps": self.bad_steps,
                 "step": self.scheduler.last_epoch}
 
     def load_state_dict(self, state: Dict):
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """A state of full tensors (``state_dict``'s, or a checkpoint's of
+        any mesh); under tensor parallelism cut to this rank's shard."""
+        model, opt = state["model"], state["optimizer"]
+        if self.tp:
+            m, M = self.mesh.model_index(), self.mesh.model_count()
+            layout = tensor_parallel.tp_layout(model)
+            model = tensor_parallel.shard_state(model, m, M)
+            opt = self._moments(opt, lambda name, v: tensor_parallel.shard_tensor(
+                v, *layout[name], m, M) if name in layout else v)
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(opt)
         self.scheduler.load_state_dict(state["scheduler"])
         self.bad_steps.copy_(state["bad_steps"])

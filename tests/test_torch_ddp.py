@@ -35,8 +35,8 @@ processes are killed on failure.
   the uneven 5-sample epoch (two global batches of 4; rank 1's second
   slice is all padding), which ends on both ranks with the one-process
   epoch's losses (the JAX package's test_two_process_lockstep_on_uneven_dataset).
-- The backend and device rule, the data-axis check and the CLI's refusal
-  of its inference modes in a world.
+- The backend and device rule, the mesh check and the CLI's refusal of
+  its inference modes in a world.
 """
 
 import os
@@ -421,17 +421,32 @@ def test_backend_and_device_rule(monkeypatch):
     assert mesh.local_device("cpu", rank=1) == torch.device("cpu")
 
 
-def test_mesh_takes_the_data_axis_only():
+def test_check_mesh_axes():
+    """("data",) and ("data", "model") are the meshes; a shape must span the
+    world, -1 filling one slot; every other axis set is refused."""
     mesh.check_mesh((-1,), ("data",))
     mesh.check_mesh((1,), ("data",))
-    with pytest.raises(SystemExit, match="tensor parallelism.*ROADMAP.md, Queue 1"):
-        mesh.check_mesh((1, 1), ("data", "model"))
-    with pytest.raises(SystemExit, match="one axis"):
-        mesh.check_mesh((1,), ("batch",))
+    mesh.check_mesh((1, 1), ("data", "model"))
+    mesh.check_mesh((-1, 1), ("data", "model"))
+    assert mesh.mesh_dims((-1,), ("data",), world=3) == (3, 1)
+    assert mesh.mesh_dims((2, -1), ("data", "model"), world=8) == (2, 4)
+    assert mesh.mesh_dims((-1, 4), ("data", "model"), world=8) == (2, 4)
+    assert mesh.mesh_dims((1, 4), ("data", "model"), world=4) == (1, 4)
+    for axes in (("batch",), ("model",), ("model", "data"), ("data", "model", "seq")):
+        with pytest.raises(SystemExit, match="the port's meshes"):
+            mesh.check_mesh((1,) * len(axes), axes)
     with pytest.raises(SystemExit, match="spans the 1 process"):
         mesh.check_mesh((2,), ("data",))
-    with pytest.raises(SystemExit, match="tensor parallelism"):
-        Trainer(model_config((1, {})), TrainConfig(mesh_shape=(1, 1),
+    with pytest.raises(SystemExit, match="spans the 8 process"):
+        mesh.mesh_dims((2, 2), ("data", "model"), world=8)
+    with pytest.raises(SystemExit, match="3 does not divide the 8"):
+        mesh.mesh_dims((-1, 3), ("data", "model"), world=8)
+    with pytest.raises(SystemExit, match="one size a mesh axis"):
+        mesh.check_mesh((1,), ("data", "model"))
+    with pytest.raises(SystemExit, match="one size a mesh axis"):
+        mesh.check_mesh((-1, -1), ("data", "model"))
+    with pytest.raises(SystemExit, match="spans the 1 process"):
+        Trainer(model_config((1, {})), TrainConfig(mesh_shape=(1, 2),
                                                    mesh_axes=("data", "model")), device="cpu")
 
 

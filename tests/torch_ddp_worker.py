@@ -1,6 +1,6 @@
-"""One rank of a data-parallel world of the port, started by
-tests/test_torch_ddp.py on the CPU (gloo). It imports torch and the port,
-never JAX.
+"""One rank of a data-parallel or tensor-parallel world of the port,
+started by tests/test_torch_ddp.py and tests/test_torch_tp.py on the CPU
+(gloo). It imports torch and the port, never JAX.
 
     python tests/torch_ddp_worker.py SPEC.pkl
 
@@ -10,13 +10,20 @@ and ``tasks``, run in order, each a dict with a ``kind``:
 
   gather   ``gather_metrics(task["metrics"][rank], task["weights"][rank])``
   steps    a distributed Trainer (``model``: stage and ModelConfig
-           overrides, ``train``: TrainConfig keywords, weights from the
-           ``weights`` file (a torch.save'd state_dict) or a checkpoint
-           ``restore`` directory) takes a step on this rank's rows of each of
-           the global ``batches``; records each step's metrics and the
-           digests of the Trainer's state after the restore and at the end
-           (``state_digest``), rank 0 its final weights when ``keep_model``,
-           and with ``save`` writes a checkpoint there
+           overrides, ``train``: TrainConfig keywords, a (data, model) mesh
+           among them, weights from the ``weights`` file (a torch.save'd
+           state_dict) or a checkpoint ``restore`` directory) takes a step
+           on this rank's rows (its data index's) of each of the global
+           ``batches``; records each step's metrics and the digests of the
+           Trainer's (gathered) state after the restore and at the end
+           (``state_digest``) and of its local replicated parameters
+           (``replicated``), rank 0 its final (gathered) weights when
+           ``keep_model``, and with ``save`` writes a checkpoint there
+  forward  a stage-1 model from ``weights`` on the ``mesh`` (shape), each
+           model rank its shard (``shard_params_tp``), in eval mode: the
+           outputs of this rank's data slice of ``batch``
+  allreduce  the digest of a per-rank random tensor summed over the model
+           group of the ``mesh``: the bytes each rank receives
   epoch    train_one_epoch over a Batcher with the process stride on
            ``SynthStage1(n)`` at batch size ``bs``; records the per-step
            losses (through the Trainer's metrics) and the stats
@@ -32,8 +39,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from countdetr_tpu_torch.config import TrainConfig, stage1_config, stage2_config  # noqa: E402
-from countdetr_tpu_torch.core import mesh  # noqa: E402
+from countdetr_tpu_torch.core import mesh, tensor_parallel  # noqa: E402
 from countdetr_tpu_torch.data.batching import Batcher  # noqa: E402
+from countdetr_tpu_torch.models.anchor_detr import build_model  # noqa: E402
 from countdetr_tpu_torch.train import checkpoints as ckpt  # noqa: E402
 from countdetr_tpu_torch.train import engine  # noqa: E402
 from countdetr_tpu_torch.train.train_step import Trainer  # noqa: E402
@@ -107,19 +115,39 @@ def run(task, rank, world):
     if task["kind"] == "steps":
         trainer = trainer_for(task)
         restored = state_digest(trainer.state_dict())
+        d, n = trainer.mesh.data_index(), trainer.mesh.data_count()
         metrics = []
         for batch in task["batches"]:
-            bs = len(batch["images"]) // world
-            mine = {k: v[rank * bs:(rank + 1) * bs] for k, v in batch.items()}
+            bs = len(batch["images"]) // n
+            mine = {k: v[d * bs:(d + 1) * bs] for k, v in batch.items()}
             metrics.append({k: float(v) for k, v in trainer.step(mine).items()})
         if task.get("save"):
             ckpt.save_checkpoint(task["save"], trainer.scheduler.last_epoch, trainer,
                                  {"epoch": 0})
+        state = trainer.state_dict()
         model = None
         if task.get("keep_model") and rank == 0:
-            model = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-        return {"metrics": metrics, "restored": restored,
-                "state": state_digest(trainer.state_dict()), "model": model}
+            model = {k: v.detach().clone() for k, v in state["model"].items()}
+        replicated = state_digest({name: p for name, p in trainer.model.named_parameters()
+                                   if getattr(p, "tp_dim", None) is None})
+        return {"metrics": metrics, "restored": restored, "state": state_digest(state),
+                "model": model, "replicated": replicated}
+    if task["kind"] == "forward":
+        m = mesh.make_mesh(task["mesh"], ("data", "model"))
+        model = build_model(model_config(task["model"]), device="cpu",
+                            state_dict=torch.load(task["weights"])).eval()
+        tensor_parallel.shard_params_tp(model, m)
+        bs = len(task["batch"]["images"]) // m.data_count()
+        rows = slice(m.data_index() * bs, (m.data_index() + 1) * bs)
+        args = [torch.from_numpy(task["batch"][k][rows]) for k in task["inputs"]]
+        with torch.no_grad():
+            out = model(*args)
+        return {k: v.numpy() for k, v in out.items() if k in task["keep"]}
+    if task["kind"] == "allreduce":
+        m = mesh.make_mesh(task["mesh"], ("data", "model"))
+        x = torch.from_numpy(np.random.default_rng(rank).normal(size=task["n"]).astype(np.float32))
+        torch.distributed.all_reduce(x, group=m.model_group)
+        return state_digest({"sum": x})["/sum"]
     if task["kind"] == "epoch":
         trainer = trainer_for(task)
         batcher = Batcher(SynthStage1(task["n"]), task["bs"], [(64, 96)], max_points=3,
