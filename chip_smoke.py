@@ -47,6 +47,19 @@ Phases, each printed as one JSON line:
             sizes; launch counters are zeroed just before and read just
             after (12 RCDA and 6 MHA launches per forward); then B=32
             all-valid 592x592 forwards are timed and profiled;
+  bench     the serving bench entry points as a user runs them, each a
+            `python -m` process: countdetr_tpu_torch.bench at its defaults
+            (B=32 592x592 bf16 packed uint8, hi=40, lo=10, 3 pairs, the
+            profiler's device-envelope estimate) and with BENCH_PACKED=0
+            BENCH_ITERS=8 (float32 images, unpacked stem): exit 0, the JAX
+            bench's JSON line last (its keys and "device", a finite positive
+            value, vs_baseline = round(value / 19, 2)), 12 RCDA, 0 rank-1,
+            6 MHA and 0 auction launches a forward on its stderr line; then
+            countdetr_tpu_torch.cli.profile_eval --iters 10 (device ms a
+            forward by category; its custom-call category non-zero and
+            holding the RCDA and MHA kernels); the profiler, wall, busy-time
+            and envelope rates and the idle share beside the serving
+            phase's b32_img_per_s;
   grad      the kernels' autograd wiring: losses and gradients of a
             full-width 2+2-layer model in float32, B=2 at 256x256 with one
             padded image, on the card against the CPU, given the same match;
@@ -189,15 +202,18 @@ stdout.
     python3 chip_smoke.py --only auction rank1   # bring-up: build, then
                                                  # only these kernels' cases
                                                  # (rcda, rank1, mha, auction)
-    python3 chip_smoke.py --only engine          # build, then only the
-                                                 # engine phase
-    python3 chip_smoke.py --only cli             # build, then only the
-                                                 # cli phase
+    python3 chip_smoke.py --only bench           # build, then only the
+                                                 # bench phase
+    python3 chip_smoke.py --only engine          # likewise, the engine phase
+    python3 chip_smoke.py --only cli             # likewise, the cli phase
     python3 chip_smoke.py --only defaults        # likewise, the defaults phase
     python3 chip_smoke.py --only longtail        # likewise, the longtail phase
     python3 chip_smoke.py --only ddp             # likewise, the ddp phase
     python3 chip_smoke.py --only tp              # likewise, the tp phase
     python3 chip_smoke.py --only convergence     # the learning-loop check
+
+A run of phases (--only and phase names) ends, when they pass, with the
+nvidia-smi line and the {"ok": true, ...} line, as the whole run does.
 
 The ``convergence`` phase runs only when asked for:
 tests/torch_convergence_run.py in bfloat16, the JAX package's learning-loop
@@ -212,6 +228,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -224,7 +241,8 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("engine", "cli", "defaults", "longtail", "ddp", "tp", "convergence")  # with --only
+PHASES = ("bench", "engine", "cli", "defaults", "longtail", "ddp", "tp",
+          "convergence")  # with --only
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -3113,6 +3131,122 @@ def tp_world_rec(w, ranks, shape, one, one_model, trainable, one_forward, failur
             failures.append((name, "backend on a shared card", x["backend"]))
 
 
+BENCH_RESULT_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
+BENCH_METRIC = "images/sec/chip at 600px eval (stage-2 forward)"
+BENCH_PER_FORWARD = {"rcda": 12, "rcda_rank1": 0, "mha": 6, "auction": 0}
+# (path, BENCH_* knobs over the bench's defaults: B=32, 592x592, bf16, hi=40,
+# lo=10, 3 pairs, packed, the profiler's estimate)
+BENCH_RUNS = (("bench", {}), ("bench_unpacked", {"BENCH_PACKED": "0", "BENCH_ITERS": "8"}))
+BENCH_PROFILE_ITERS = 10
+BENCH_TIMEOUT_S = 600
+
+
+def python_module(module, args=(), env_over=None, timeout=BENCH_TIMEOUT_S):
+    """``python -m module args`` from the repository root, with the BENCH_*
+    variables of this process's environment dropped and ``env_over`` set;
+    (exit code, stdout, stderr, seconds). A run past ``timeout`` is killed."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(env_over or {})
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t
+
+
+def bench_run(name, env_over, kind, failures):
+    """One ``python -m countdetr_tpu_torch.bench`` run and its checks: exit
+    0, the JAX bench's line last on stdout (its keys and ``device`` only, a
+    finite positive value, vs_baseline = round(value / 19, 2)), the stderr
+    line's estimator and launches a forward. Returns its record."""
+    rc, out, err, seconds = python_module("countdetr_tpu_torch.bench", env_over=env_over)
+    rec = {"knobs": env_over, "exit": rc, "seconds": seconds}
+    lines = out.strip().splitlines()
+    try:
+        result = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        result = None
+    stats = None
+    for line in reversed(err.strip().splitlines()):
+        if line.startswith("{") and '"estimator"' in line:
+            stats = json.loads(line)
+            break
+    rec.update(result=result, stats=stats)
+    if rc != 0 or result is None or stats is None:
+        rec.update(stdout_tail=out[-2000:], stderr_tail=err[-4000:])
+        failures.append((name, "exit", rc, "result line" if result else "no result line"))
+        return rec
+    value = result.get("value") if isinstance(result, dict) else None
+    if not (isinstance(value, (int, float)) and set(result) == BENCH_RESULT_KEYS
+            and result["metric"] == BENCH_METRIC and result["unit"] == "img/s/chip"
+            and result["device"] == kind and math.isfinite(value) and value > 0
+            and result["vs_baseline"] == round(value / 19.0, 2)):
+        failures.append((name, "result line", result))
+    if stats["estimator"] != "device_profile":
+        failures.append((name, "estimator", stats["estimator"]))
+    if stats["launches_per_forward"] != BENCH_PER_FORWARD:
+        failures.append((name, "launches a forward", stats["launches_per_forward"]))
+    return rec
+
+
+def bench_phase(smi, failures, serving_img_per_s=None):
+    """The serving bench entry points as a user runs them, each in its own
+    process: ``python -m countdetr_tpu_torch.bench`` at its defaults and
+    with BENCH_PACKED=0 BENCH_ITERS=8, and ``python -m
+    countdetr_tpu_torch.cli.profile_eval --iters 10`` (its custom-call
+    category non-zero and holding the RCDA and MHA kernels). Returns each
+    bench run's launch counts by path."""
+    from countdetr_tpu_torch.utils import xprof
+
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    rec = {"phase": "bench", "nvidia_smi": smi, "serving_b32_img_per_s": serving_img_per_s}
+    for name, env_over in BENCH_RUNS:
+        rec[name] = bench_run(name, env_over, kind, failures)
+    work = tempfile.mkdtemp(prefix="bench_profile_")
+    try:
+        trace_dir, summary_path = os.path.join(work, "trace"), os.path.join(work, "summary.json")
+        rc, out, err, seconds = python_module(
+            "countdetr_tpu_torch.cli.profile_eval",
+            ["--iters", str(BENCH_PROFILE_ITERS), "--trace_dir", trace_dir,
+             "--summary", summary_path])
+        prof = {"exit": rc, "seconds": seconds}
+        if rc != 0:
+            prof.update(stdout_tail=out[-2000:], stderr_tail=err[-4000:])
+            failures.append(("profile_eval", "exit", rc))
+        else:
+            with open(summary_path) as f:
+                summary = json.load(f)
+            table, _ = xprof.parse_trace(trace_dir)
+            custom = sorted(n for n, (_s, _c, cat) in table.items() if cat == "custom-call")
+            env_ms = summary["while_envelope_s"] * 1e3 / BENCH_PROFILE_ITERS
+            prof.update(
+                envelope_ms_per_forward=env_ms,
+                img_per_s=summary["batch"] * 1e3 / env_ms if env_ms > 0 else None,
+                total_ms_per_forward=summary["total_s"] * 1e3 / BENCH_PROFILE_ITERS,
+                ms_per_forward_by_category={
+                    c: d * 1e3 / BENCH_PROFILE_ITERS for c, d in sorted(
+                        summary["by_category"].items(), key=lambda kv: -kv[1])},
+                custom_call_kernels=custom,
+                top_ops=[{k: op[k] for k in ("name", "s", "count", "category")}
+                         for op in summary["top_ops"][:10]])
+            if not (summary["by_category"].get("custom-call", 0.0) > 0
+                    and any("rcda" in n for n in custom) and any("mha" in n for n in custom)):
+                failures.append(("profile_eval", "custom-call", summary["by_category"], custom))
+        rec["profile_eval"] = prof
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    stats = (rec["bench"].get("stats") or {})
+    rec["rates"] = {k: stats.get(k) for k in (
+        "device_profile_img_per_s", "wall_img_per_s", "busy_img_per_s",
+        "profiled_wall_img_per_s", "device_idle_share", "envelope_ms_per_forward",
+        "gpu_user_annotation_ms_per_forward")}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return {name: (rec[name].get("stats") or {}).get(
+        "launches", {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0})
+        for name, _ in BENCH_RUNS}
+
+
 def make_packed_batch(rng, sizes):
     """Requests of the given (h, w) with 3 exemplar boxes inside each image."""
     reqs = []
@@ -3222,6 +3356,8 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.only and set(args.only) <= set(PHASES):
         failures = []
+        if "bench" in args.only:
+            bench_phase(smi, failures)
         if "engine" in args.only:
             engine_phase(smi, failures, args.out)
         if "cli" in args.only:
@@ -3238,7 +3374,11 @@ def main(argv=None) -> int:
             convergence_phase(smi, failures, args.out)
         if failures:
             print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
-        return 1 if failures else 0
+            return 1
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if args.only:
         return only_kernels([k for k in args.only if k not in PHASES], g, rcda_kernel,
                             mha_kernel, auction_kernel, matching)
@@ -3349,6 +3489,10 @@ def main(argv=None) -> int:
           "profile": prof, "nvidia_smi": smi})
 
     del pred, dev_in, out
+    torch.cuda.empty_cache()
+
+    # 4b. the serving bench entry points, each in its own process
+    bench_launches = bench_phase(smi, failures, 32e3 / fwd_ms)
 
     # 5. autograd through the kernels: card against CPU
     grad_phase(rng, failures)
@@ -3408,6 +3552,7 @@ def main(argv=None) -> int:
                     for k in pseudo_launches["v3"]}
     paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
              "pseudo_label": pseudo_total}
+    paths.update(bench_launches)
     paths.update({f"defaults_{name}": counts_ for name, counts_ in defaults_launches.items()})
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
     paths.update({f"cli_{name}": counts_ for name, counts_ in cli_launches.items()})

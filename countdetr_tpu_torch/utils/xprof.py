@@ -10,12 +10,15 @@ products are "dot", cuDNN convolutions "convolution", NCCL kernels
 writes (``load_trace``, ``parse_trace``) or from a live profiler
 (``events_from_profiler``, without writing the trace).
 
-``range_seconds`` is the counterpart of the JAX package's
-``while_envelope_seconds``: the device time of the events that lie inside
-the CPU ranges of one ``record_function`` name, on any thread (the
-backward's kernels are launched from autograd's own threads). A device
-event counts when it starts and ends inside the range, so the range must
-wait for the device before it closes (``torch.cuda.synchronize()``).
+``range_seconds`` is the device's busy time inside the CPU ranges of one
+``record_function`` name, on any thread (the backward's kernels are
+launched from autograd's own threads); ``device_envelope_seconds``, the
+counterpart of the JAX package's ``while_envelope_seconds``, is the span
+from the first to the last device event of each such range, gaps
+included. A device event counts when it starts and ends inside the range,
+so the range must wait for the device before it opens and before it
+closes (``torch.cuda.synchronize()``): work queued before it would leak
+in, work still running at its end would fall out.
 
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -24,7 +27,8 @@ wait for the device before it closes (``torch.cuda.synchronize()``).
             torch.cuda.synchronize()
     events = events_from_profiler(prof)
     table, total = op_table(events)
-    step_device_s = range_seconds(events, "step")
+    step_busy_s = range_seconds(events, "step")
+    step_span_s = device_envelope_seconds(events, "step")
 """
 
 from __future__ import annotations
@@ -148,13 +152,33 @@ def parse_trace(path: str, categories: Sequence[str] = DEVICE_CATEGORIES
     return op_table(load_trace(path), categories)
 
 
+def _spans(events: Iterable[dict], cat: str, name: str) -> List[Tuple[float, float]]:
+    """(start, end) in microseconds of the events of ``cat`` called ``name``."""
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+            if e.get("cat") == cat and e["name"] == name]
+
+
+def _inside(events: Iterable[dict], ranges, categories) -> List[List[Tuple[float, float]]]:
+    """For each range, the (start, end) of the events of ``categories`` that
+    start and end inside it."""
+    found = [[] for _ in ranges]
+    for e in events:
+        if e.get("cat") not in categories:
+            continue
+        a = float(e["ts"])
+        b = a + float(e["dur"])
+        for i, (lo, hi) in enumerate(ranges):
+            if lo <= a and b <= hi:
+                found[i].append((a, b))
+    return found
+
+
 def range_seconds(events: Sequence[dict], name: str,
                   categories: Sequence[str] = DEVICE_CATEGORIES) -> float:
     """Seconds of the events of ``categories`` that start and end inside a
     CPU ``record_function`` range called ``name``, summed over its calls;
     0.0 when there is no such range."""
-    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-              if e.get("cat") == "user_annotation" and e["name"] == name]
+    ranges = _spans(events, "user_annotation", name)
     total = 0.0
     for e in events:
         if e.get("cat") not in categories:
@@ -164,3 +188,31 @@ def range_seconds(events: Sequence[dict], name: str,
         if any(lo <= a and b <= hi for lo, hi in ranges):
             total += float(e["dur"]) / 1e6
     return total
+
+
+def device_envelope_seconds(events: Sequence[dict], name: str,
+                            categories: Sequence[str] = DEVICE_CATEGORIES) -> float:
+    """Seconds from the start of the first to the end of the last event of
+    ``categories`` that lie inside a CPU ``record_function`` range called
+    ``name``, summed over its calls; 0.0 when there is no such range.
+
+    Unlike ``range_seconds``, which sums the events' own durations (busy
+    time), the envelope includes the gaps between them, as the JAX
+    package's ``while`` envelope includes its loop's gaps. In eager PyTorch
+    those gaps are the host's dispatch, which a jitted ``fori_loop`` has
+    none of: the envelope sits near the wall clock of a synchronised range,
+    and ``range_seconds / device_envelope_seconds`` is the device's busy
+    share of it."""
+    total = 0.0
+    for spans in _inside(events, _spans(events, "user_annotation", name), categories):
+        if spans:
+            total += (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6
+    return total
+
+
+def annotation_seconds(events: Sequence[dict], name: str) -> float:
+    """Seconds of the device-side ("gpu_user_annotation") spans of the
+    ``record_function`` range ``name``, summed over its calls: the profiler's
+    own reading of the range on the device, a cross-check of
+    ``device_envelope_seconds``."""
+    return sum(b - a for a, b in _spans(events, "gpu_user_annotation", name)) / 1e6

@@ -101,14 +101,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import countdetr_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 44, names\n"
+        "assert len(names) >= 52, names\n"
         "for n in ('train.train_step', 'train.optimizer', 'ops.matching', 'ops.losses',\n"
         "          'ops.kernels.auction_kernel', 'train.engine', 'data.coco_io',\n"
         "          'data.fscd147', 'data.fscd_lvis', 'data.loader', 'data.cache',\n"
         "          'data.transforms', 'data.synthetic', 'eval.coco_eval', 'eval.counting',\n"
         "          'eval.native_match', 'train.checkpoints', 'utils.logging',\n"
         "          'utils.visualize', 'cli.main', 'cli.bench', 'cli.offline_eval',\n"
-        "          'core.mesh'):\n"
+        "          'core.mesh', 'bench', 'cli.profile_eval'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'countdetr_tpu', 'PIL')\n"
         "       or m.startswith(('jax.', 'flax.', 'countdetr_tpu.', 'PIL.'))]\n"
