@@ -21,8 +21,12 @@ Phases, each printed as one JSON line:
             at B=32 37x37 (L=1369, 576); RCDA v3 bfloat16 at B=32 over the
             learned prior's L=900 decoder queries; MHA in bfloat16 at
             S=900 (B=32 and 8) and at B=8 over the pseudo-label point tiers
-            S=700 and S=5600, one row fully masked; max error and its
-            tolerance;
+            S=700 and S=5600, one row fully masked; MHA in float32 at B=8
+            S=700 and 576 (the decoder's self-attention in the CLI's default
+            dtype); max error and its tolerance; each float32 case gives
+            its bound at the CUDA cores' 67 TFLOP/s too (cuda_core_bound_ms);
+            the float32 kernels at the ddp phase's shapes repeated (bit-equal)
+            and on each half of the batch (bit-equal to its rows);
             the auction with tolerance 0 (assignments, rounds and bids
             identical) on the matcher's shapes: 8x576x700 transposed on
             random, DETR-shaped and degenerate costs (the DETR-shaped one
@@ -36,7 +40,8 @@ Phases, each printed as one JSON line:
             round (kernel_ms over the largest image's rounds); kernel /
             plain / library times (CUDA events; MHA's kernel / library
             ratio), the least time the card
-            could take (bytes, operations or softmax exponentials), and the
+            could take (bytes, operations at 989 TFLOP/s bf16 or 495 / 3
+            f32 (3xTF32), or softmax exponentials), and the
             host scipy LAP's time for the auction; then the attention kernels
             at a few other shapes (ragged tiles, head dims 16 and 64, long
             keys, the float32 MHA at S=1700 and 5600), untimed;
@@ -49,13 +54,16 @@ Phases, each printed as one JSON line:
             all-valid 592x592 forwards are timed and profiled;
   bench     the serving bench entry points as a user runs them, each a
             `python -m` process: countdetr_tpu_torch.bench at its defaults
-            (B=32 592x592 bf16 packed uint8, hi=40, lo=10, 3 pairs, the
-            profiler's device-envelope estimate) and with BENCH_PACKED=0
-            BENCH_ITERS=8 (float32 images, unpacked stem): exit 0, the JAX
+            but one timing pair (B=32 592x592 bf16 packed uint8, hi=40,
+            lo=10, BENCH_PAIRS=1, the profiler's device-envelope estimate)
+            and with BENCH_PACKED=0 BENCH_ITERS=8 (float32 images, unpacked
+            stem) and with BENCH_DTYPE=float32 BENCH_ITERS=8 (the CLI's
+            default dtype, the attention kernels on 3xTF32), each with
+            BENCH_PAIRS=1: exit 0, the JAX
             bench's JSON line last (its keys and "device", a finite positive
             value, vs_baseline = round(value / 19, 2)), 12 RCDA, 0 rank-1,
             6 MHA and 0 auction launches a forward on its stderr line; then
-            countdetr_tpu_torch.cli.profile_eval --iters 10 (device ms a
+            countdetr_tpu_torch.cli.profile_eval --iters 5 (device ms a
             forward by category; its custom-call category non-zero and
             holding the RCDA and MHA kernels); the profiler, wall, busy-time
             and envelope rates and the idle share beside the serving
@@ -79,11 +87,11 @@ Phases, each printed as one JSON line:
             (12 RCDA and 6 MHA launches per step); finite losses, frozen
             tensors unchanged, trainable ones moved; step time, img/s, the
             profiler's idle share;
-  pseudo_label   stage 1's main path: generate_pseudo_labels over 24
+  pseudo_label   stage 1's main path: generate_pseudo_labels over 18
             images of mixed sizes in the three stage-1 buckets, point
             counts in all three tiers (128, 700, 5600; one image with 3700
-            points), with perturbed weights, timed in turns under "v3",
-            "rank1", "rank1", "v3" after a warm-up run of each: annotation
+            points), with perturbed weights, timed under "v3" then
+            "rank1" after a warm-up run of each: annotation
             counts equal the points, the two JSONs' w, h within 1 px, 12
             RCDA (resp. 12 rank-1) and 6 MHA launches per forward; images/s,
             points/s and a profiled run of each variant;
@@ -177,7 +185,7 @@ Phases, each printed as one JSON line:
             rank; FFN 1024, 512 a rank), worlds spawned after the build
             over gloo on the one card: (a) 2 processes, mesh (data=1,
             model=2), float32: the forward at B=2, 592x592, one image
-            padded, within 1e-4 of one process; 4 Trainer steps on global
+            padded, within 1e-4 of one process; 2 Trainer steps on global
             batches of 8 (T=700 and 128 in turns, image 0 with 40 valid
             targets), replaying one process's match, against that process:
             losses and gradient norm within DDP_TOL, weights within the
@@ -201,7 +209,10 @@ stdout.
 
     python3 chip_smoke.py --only auction rank1   # bring-up: build, then
                                                  # only these kernels' cases
-                                                 # (rcda, rank1, mha, auction)
+                                                 # (rcda, rank1, mha, auction;
+                                                 # rcda and mha add their
+                                                 # float32 rows of PERF.md and
+                                                 # their determinism check)
     python3 chip_smoke.py --only bench           # build, then only the
                                                  # bench phase
     python3 chip_smoke.py --only engine          # likewise, the engine phase
@@ -244,9 +255,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("bench", "engine", "cli", "defaults", "longtail", "ddp", "tp",
           "convergence")  # with --only
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type
+# Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s by type.
+# A float32 product on the tensor cores is three TF32 products (3xTF32, the
+# f32 attention kernels), so f32 operations are bounded at 495 / 3 TFLOP/s;
+# CUDA_CORE_F32 (67 TFLOP/s outside the tensor cores) bounds the auction's
+# scans, and each f32 attention case also reports its bound at that rate
+# (``cuda_core_bound_ms``), the bound of the CUDA-core float32 kernels.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # f32 outside tensor cores
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+CUDA_CORE_F32 = 67e12
 TOL = {torch.bfloat16: {"rcda": 2e-2, "mha": 1e-2}, torch.float32: {"rcda": 1e-4, "mha": 1e-4}}
 # bfloat16 MHA: each output element within max(1e-2, one bf16 ulp of the
 # plain version's |output|) (``mha_errors``): at |output| >= 2 one bf16 ulp
@@ -261,7 +278,13 @@ GRAD_TOL = 1e-3  # relative: max |card - cpu| / max |cpu|
 EXEMPLARS = [[0.1, 0.1, 0.3, 0.3], [0.4, 0.4, 0.6, 0.6], [0.2, 0.5, 0.4, 0.7]]
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -304,11 +327,11 @@ def card_rates():
     return {"sms": sms, "max_sm_mhz": mhz, "ex2_per_s": EX2_PER_S}
 
 
-def bound(ops, nbytes, dtype, exps=0):
+def bound(ops, nbytes, dtype, exps=0, peak=None):
     """The least milliseconds for the work, and what sets it: the operations
-    at the dtype's peak, the bytes at the memory rate, or the softmax
-    exponentials at the SFU rate."""
-    t = {"operations": ops / PEAK_OPS[dtype], "bytes": nbytes / HBM_BYTES_PER_S,
+    at the dtype's peak (or ``peak`` op/s), the bytes at the memory rate, or
+    the softmax exponentials at the SFU rate."""
+    t = {"operations": ops / (peak or PEAK_OPS[dtype]), "bytes": nbytes / HBM_BYTES_PER_S,
          "exp": exps / EX2_PER_S}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
@@ -346,7 +369,7 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
     nbytes = isz * (2 * B * L * E + B * (W + H) * E + B * H * W * E + B * (W + H) + B * L * E)
     exps = B * n * L * (H + W)  # one per score of both softmaxes
     bound_ms, bound_by = bound(ops, nbytes, dt, exps)
-    return {
+    rec = {
         "variant": variant, "shape": {"B": B, "L": L, "H": H, "W": W, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
         "max_abs_err": err, "tol": TOL[dt]["rcda"], "finite": bool(torch.isfinite(got).all()),
@@ -355,6 +378,11 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
     }
+    if dt == torch.float32:
+        rec["cuda_core_bound_ms"] = bound(ops, nbytes, dt, exps, peak=CUDA_CORE_F32)[0]
+        if variant == "v3":
+            rec["route"] = rcda_kernel.f32_route(H, W, d)
+    return rec
 
 
 def bf16_ulp(x):
@@ -425,6 +453,9 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8, S=None, key_grid=None, 
     nbytes = isz * 2 * B * (L + S) * E + 4 * B * S
     exps = B * n * L * S  # one per score
     bound_ms, bound_by = bound(ops, nbytes, dt, exps)
+    f32 = {}
+    if dt == torch.float32:
+        f32["cuda_core_bound_ms"] = bound(ops, nbytes, dt, exps, peak=CUDA_CORE_F32)[0]
     rec = {
         "shape": {"B": B, "L": L, "S": S, "E": E, "heads": n},
         "dtype": str(dt).replace("torch.", ""),
@@ -435,7 +466,7 @@ def mha_case(mha_kernel, g, dt, B=32, L=576, E=256, n=8, S=None, key_grid=None, 
         "dead_row_finite": bool(torch.isfinite(dead).all()),
         "dead_row_uniform_err": dead_err, "dead_row_within_tol": dead_share <= 1,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
+        "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9, **f32,
     }
     if not time_it:
         return rec
@@ -497,6 +528,64 @@ def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
     return out
 
 
+def f32_determinism(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha"), reps=10):
+    """The float32 kernels at the ddp phase's shapes, one process's batch of
+    16 at 592x592 (37x37; RCDA over L=1369 and 576 queries, MHA over L=S=576,
+    image 1 padded): ``reps`` more calls on the same inputs bit-equal to the
+    first (deterministic), and each rank's half of the batch on its own
+    bit-equal to its rows of the whole (batch-invariant)."""
+    dev = torch.device("cuda")
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    B, E, n, H, W = 16, 256, 8, 37, 37
+    calls = []
+    if "rcda" in kinds:
+        bias_row, bias_col = torch.zeros(B, W, device=dev), torch.zeros(B, H, device=dev)
+        bias_row[1, 30:] = -1e30
+        bias_col[1, 25:] = -1e30
+        for L in (1369, 576):
+            xs = [r(B, L, E) * 32**-0.5, r(B, L, E) * 32**-0.5, r(B, W, E), r(B, H, E),
+                  r(B, H, W, E), bias_row, bias_col]
+            calls.append((f"rcda L={L}", lambda *a: rcda_kernel.rcda_core(*a, n, "v3"), xs))
+    if "mha" in kinds:
+        bias = torch.zeros(B, 576, device=dev)
+        bias[1, 500:] = -1e30
+        xs = [r(B, 576, E) * 32**-0.5, r(B, 576, E), r(B, 576, E), bias]
+        calls.append(("mha L=S=576", lambda *a: mha_kernel.mha_core(*a, n), xs))
+    out = []
+    for name, fn, xs in calls:
+        whole = fn(*xs)
+        deterministic = all(torch.equal(fn(*xs), whole) for _ in range(reps))
+        halves = [fn(*(x[i:i + B // 2] for x in xs)) for i in (0, B // 2)]
+        out.append({"name": name, "dtype": "float32", "batch": B, "halves": B // 2,
+                    "repeats": reps, "deterministic": deterministic,
+                    "batch_invariant": torch.equal(torch.cat(halves), whole)})
+    return out
+
+
+def f32_cases(rcda_kernel, mha_kernel, g, kinds):
+    """The float32 attention rows of PERF.md that the default-dtype paths
+    launch, timed: RCDA v3 at serving B=32 (L=1369, 576), stage 1's B=8
+    24x42 (L=1008, 700) and a TP rank's E=128 (L=1369, 576); MHA at B=8
+    S=700 / 576 (the decoder's self-attention over the point tiers), the
+    longtail shapes (standard attention's encoder and cross-attention at
+    B=32, the level layer) and a TP rank's (L=S=1369 over the grid, 576)."""
+    f32 = torch.float32
+    rec = {}
+    if "rcda" in kinds:
+        rec["rcda"] = [rcda_case(rcda_kernel, g, f32, L) for L in (1369, 576)]
+        rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, **STAGE1_SHAPE) for L in (1008, 700)]
+        rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, E=TP_E, n=TP_HEADS)
+                        for L in (1369, 576)]
+    if "mha" in kinds:
+        rec["mha"] = [mha_case(mha_kernel, g, f32, B=8, L=L) for L in (700, 576)]
+        rec["mha"] += [mha_case(mha_kernel, g, f32, B=B, L=L, S=S, key_grid=grid)
+                       for B, L, S, grid in LONGTAIL_MHA]
+        rec["mha"] += [mha_case(mha_kernel, g, f32, B=32, L=L, key_grid=grid, E=TP_E,
+                                n=TP_HEADS) for L, grid in ((1369, (37, 37, 30, 25)), (576, None))]
+    rec["determinism"] = f32_determinism(rcda_kernel, mha_kernel, g, kinds)
+    return rec
+
+
 def in_tol(c):
     """A kernel case within its tolerance (MHA's own verdict, else the
     largest error against ``tol``)."""
@@ -528,7 +617,10 @@ def auction_case(auction_kernel, name, benefit, active, eps, cap, scaling=False,
     args = (benefit, active, eps, cap, scaling)
     got, rounds, bids = auction_kernel.auction_assign(*args, with_stats=True)
     torch.cuda.synchronize()
-    want, w_rounds, w_bids = auction_kernel.auction_plain(*args, with_stats=True)
+    plain = {}  # the compared run is the timed one (the plain rounds take seconds)
+    plain_ms = cuda_ms(lambda: plain.setdefault(
+        "out", auction_kernel.auction_plain(*args, with_stats=True)), 1, warmup=0)
+    want, w_rounds, w_bids = plain["out"]
     B, P, O = benefit.shape
     C, resident, smem = auction_kernel.cluster_plan(B, P, O)
     rec = {
@@ -553,11 +645,11 @@ def auction_case(auction_kernel, name, benefit, active, eps, cap, scaling=False,
                   + eps.numel() * eps.element_size() + got.numel() * got.element_size())
         n_bids = float(bids.sum().item())
         ops = 2 * n_bids * O
-        bound_ms, bound_by = bound(ops, nbytes, torch.float32)
+        bound_ms, bound_by = bound(ops, nbytes, torch.float32, peak=CUDA_CORE_F32)
         kernel_ms = cuda_ms(lambda: auction_kernel.auction_assign(*args), 5)
         rec.update({
             "kernel_ms": kernel_ms, "us_per_round": kernel_ms * 1e3 / max(1, int(rounds.max())),
-            "plain_ms": cuda_ms(lambda: auction_kernel.auction_plain(*args), 1, warmup=0),
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
             "mbytes": nbytes / 1e6, "l2_mbytes": n_bids * O * 4 / 1e6, "library_ms": None,
         })
@@ -952,7 +1044,7 @@ def stage1_train_phase(rng, smi, failures):
     return launches
 
 
-def pseudo_dataset(rng, n=24):
+def pseudo_dataset(rng, n=18):
     """Images of mixed sizes in the three stage-1 buckets, with point counts
     in all three tiers of max_points=700 (128, 700, 5600); image 2 holds
     3700 points, FSC-147's densest."""
@@ -994,8 +1086,8 @@ def pseudo_label_phase(rng, smi, failures):
     for v, model in models.items():  # warm-up, outside the counts
         generate_pseudo_labels(model, ds, paths[v], **kw)
     rec = {v: {"seconds": [], "launches": []} for v in models}
-    # timed in turns, counters zeroed just before each run and read after
-    for v in ("v3", "rank1", "rank1", "v3"):
+    # timed, counters zeroed just before each run and read after
+    for v in ("v3", "rank1"):
         torch.cuda.synchronize()
         reset_launches(*kernels)
         t = time.perf_counter()
@@ -1396,7 +1488,7 @@ CLI_STAGE2 = ["--stage", "2", "--spatial_prior", "grid", "--num_query_position",
               "--num_query_pattern", "1", "--no_aux_loss"]
 CLI_BENCH = {
     "train": ["--mode", "train", "--queries", "600", "--max_boxes", "700", "--size", "592"],
-    "match": ["--mode", "match"],
+    "match": ["--mode", "match", "--iters", "3"],
     "e2e": ["--mode", "e2e", "--n_images", "32"],
     "flops": ["--mode", "flops"],
 }
@@ -1642,7 +1734,8 @@ def cli_phase(smi, failures, out_dir):
         # 8. the bench modes
         rec["bench"] = {}
         for mode, argv in CLI_BENCH.items():
-            iters = 10  # the tool's default
+            args = bench.get_args_parser().parse_args(argv + ["--device", CLI_BENCH_DEVICE])
+            iters = args.iters  # match: 3 cost structures, a warm-up and iters timed each
             want_of = {
                 "train": lambda n: want(n, matching=True),
                 "e2e": lambda n: want(n, matching=True),
@@ -1650,7 +1743,6 @@ def cli_phase(smi, failures, out_dir):
                                     "auction": 3 * (iters + 1)},
                 "flops": lambda n: want(0),  # counted on the CPU, plain path
             }[mode]
-            args = bench.get_args_parser().parse_args(argv + ["--device", CLI_BENCH_DEVICE])
             line = run(f"bench_{mode}", lambda: bench.main(args), want_of)
             rec["bench"][mode] = line
             keys = {"train": "img_per_s_per_chip", "e2e": "img_per_s_e2e",
@@ -2200,7 +2292,7 @@ DDP_LR = 1e-4
 DDP_TOL = 2e-4
 DDP_WEIGHT_TOL = 2 * len(DDP_PLAN) * DDP_LR
 REMAT_GRAD_TOL = 1e-4  # float32, remat on vs off: max |diff| / max |grad| of each tensor
-REMAT_STEPS = 5  # timed bf16 steps a turn (off, on, on, off)
+REMAT_STEPS = 3  # timed bf16 steps a turn (off, on)
 DDP_JOIN_S = 300
 # where and at what size the phase runs (a CPU rehearsal shrinks these; the
 # spawned ranks take them from their spec)
@@ -2627,7 +2719,7 @@ def world1_overhead(smi, failures, dist, mesh, xprof, work):
 
     reset_launches(*kernels)
     turns = {"bare": [], "ddp": []}
-    order = ("bare", "ddp", "ddp", "bare") * 2
+    order = ("bare", "ddp", "ddp", "bare")
     for name in order:
         turns[name] += timed(bare if name == "bare" else ddp)
     launches = launch_counts(*kernels)
@@ -2719,7 +2811,7 @@ def remat_check(failures, prepare_stage2_batch, stage2_loss):
     torch.cuda.empty_cache()
     steps = {}
     launches = None
-    for remat in (False, True, True, False):
+    for remat in (False, True):
         tr = Trainer(stage2_config(**DDP_MODEL, compute_dtype="bfloat16", remat=remat), tcfg,
                      device=DDP_DEVICE, state_dict=base)
         tr.step(batch)  # warm-up
@@ -2762,7 +2854,7 @@ TP_MESHES = ((1, 2), (2, 2))  # (data, model) of the worlds (a) and (b)
 TP_STEPS = {(1, 2): 4, (2, 2): 2}  # float32 steps of each world
 TP_BATCH = 8  # images of a global batch
 TP_PLAN = tuple((41 + i, DDP_T[i % 2]) for i in range(4))  # (seed, T) of each global batch
-TP_BF16_STEPS = 8  # timed bfloat16 steps (e), after 2 of warm-up
+TP_BF16_STEPS = 4  # timed bfloat16 steps (e), after 2 of warm-up
 TP_FORWARD_TOL = 1e-4  # float32 forward, world (a) against one process
 TP_JOIN_S = 300
 # the attention kernels at a model rank's shapes: E=256, 8 heads over M=2
@@ -3136,8 +3228,10 @@ BENCH_METRIC = "images/sec/chip at 600px eval (stage-2 forward)"
 BENCH_PER_FORWARD = {"rcda": 12, "rcda_rank1": 0, "mha": 6, "auction": 0}
 # (path, BENCH_* knobs over the bench's defaults: B=32, 592x592, bf16, hi=40,
 # lo=10, 3 pairs, packed, the profiler's estimate)
-BENCH_RUNS = (("bench", {}), ("bench_unpacked", {"BENCH_PACKED": "0", "BENCH_ITERS": "8"}))
-BENCH_PROFILE_ITERS = 10
+BENCH_RUNS = (("bench", {"BENCH_PAIRS": "1"}),
+              ("bench_unpacked", {"BENCH_PACKED": "0", "BENCH_ITERS": "8", "BENCH_PAIRS": "1"}),
+              ("bench_f32", {"BENCH_DTYPE": "float32", "BENCH_ITERS": "8", "BENCH_PAIRS": "1"}))
+BENCH_PROFILE_ITERS = 5
 BENCH_TIMEOUT_S = 600
 
 
@@ -3190,9 +3284,9 @@ def bench_run(name, env_over, kind, failures):
 
 def bench_phase(smi, failures, serving_img_per_s=None):
     """The serving bench entry points as a user runs them, each in its own
-    process: ``python -m countdetr_tpu_torch.bench`` at its defaults and
-    with BENCH_PACKED=0 BENCH_ITERS=8, and ``python -m
-    countdetr_tpu_torch.cli.profile_eval --iters 10`` (its custom-call
+    process: ``python -m countdetr_tpu_torch.bench`` (``BENCH_RUNS``: its
+    defaults but one timing pair, then unpacked and float32 images), and ``python -m
+    countdetr_tpu_torch.cli.profile_eval --iters 5`` (its custom-call
     category non-zero and holding the RCDA and MHA kernels). Returns each
     bench run's launch counts by path."""
     from countdetr_tpu_torch.utils import xprof
@@ -3409,6 +3503,10 @@ def main(argv=None) -> int:
     # phase draws its own last of all.
     rcda_cases += [rcda_case(rcda_kernel, g, torch.bfloat16, 900)]
     mha_cases += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
+    # float32 (the CLI's default dtype): the decoder's self-attention at B=8
+    # over the 700 and 576 query tiers
+    mha_cases += [mha_case(mha_kernel, g, torch.float32, B=8, L=L) for L in (700, 576)]
+    determinism = f32_determinism(rcda_kernel, mha_kernel, g)
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
     torch.cuda.synchronize()
     failures = [("edge", c) for c in edges if not in_tol(c)]
@@ -3424,8 +3522,10 @@ def main(argv=None) -> int:
     for c in mha_cases:
         if not (c["dead_row_finite"] and c["dead_row_within_tol"]):
             failures.append(("mha dead row", c["dtype"], c["dead_row_uniform_err"]))
+    failures += [("determinism", c) for c in determinism
+                 if not (c["deterministic"] and c["batch_invariant"])]
     emit({"phase": "kernels", "rcda": rcda_cases, "rcda_rank1": rank1_cases, "mha": mha_cases,
-          "auction": auctions, "edge": edges})
+          "auction": auctions, "edge": edges, "determinism": determinism})
 
     # 3. full-width float32 parity: card (kernels) against CPU (plain)
     cfg32 = stage2_config()
@@ -3560,8 +3660,11 @@ def main(argv=None) -> int:
     paths.update(ddp_paths)
     paths.update(tp_paths)
 
-    def summary(key, replaces, source, cases, main_case, main_count):
-        return {"name": key, "route": "cuda", "source": source, "replaces": replaces,
+    def summary(key, replaces, source, cases, main_case, main_count, f32_case=None):
+        f32 = {} if f32_case is None else {"f32": {k: f32_case.get(k) for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "cuda_core_bound_ms", "library_ms", "max_abs_err", "tol")}}
+        return {**f32, "name": key, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": main_count,
                 "launches_by_path": {path: counts_[key] for path, counts_ in paths.items()},
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -3575,8 +3678,8 @@ def main(argv=None) -> int:
     # 384x672 bucket, MHA over the 5600-point tier); launches from the cli
     # phase's pipeline modes (stage-1 train and test under rank-1, the rest
     # under v3; the bench modes are in launches_by_path only)
-    def pick(cases, **shape):
-        return next(c for c in cases if c["dtype"] == "bfloat16"
+    def pick(cases, dtype="bfloat16", **shape):
+        return next(c for c in cases if c["dtype"] == dtype
                     and all(c["shape"][k] == v for k, v in shape.items()))
 
     auction_main = next(c for c in auctions if c["case"] == "576x700 detr")
@@ -3584,7 +3687,8 @@ def main(argv=None) -> int:
         summary("rcda", "countdetr_tpu/ops/pallas/rcda_kernel.py:213 fused_rcda",
                 "countdetr_tpu_torch/csrc/rcda.cu",
                 [c for c in rcda_cases + tp_cases["rcda"] if c["dtype"] == "bfloat16"],
-                pick(rcda_cases, B=8, L=1008), cli_main["rcda"]),
+                pick(rcda_cases, B=8, L=1008), cli_main["rcda"],
+                pick(rcda_cases, B=32, L=1369, dtype="float32")),
         summary("rcda_rank1", "countdetr_tpu/ops/pallas/rcda_kernel.py:153 fused_rcda_rank1",
                 "countdetr_tpu_torch/csrc/rcda_rank1.cu",
                 [c for c in rank1_cases + tp_cases["rcda_rank1"] if c["dtype"] == "bfloat16"],
@@ -3593,7 +3697,8 @@ def main(argv=None) -> int:
                 "countdetr_tpu_torch/csrc/mha.cu",
                 [c for c in mha_cases + tp_cases["mha"] if c["dtype"] == "bfloat16"]
                 + longtail_mha,
-                pick(mha_cases, B=8, S=5600), cli_main["mha"]),
+                pick(mha_cases, B=8, S=5600), cli_main["mha"],
+                pick(mha_cases, B=32, S=576, dtype="float32")),
         summary("auction", "countdetr_tpu/ops/pallas/auction_kernel.py:130 auction_assign",
                 "countdetr_tpu_torch/csrc/auction.cu",
                 [{k: c[k] for k in ("case", "max_abs_err", "identical") if k in c}
@@ -3641,9 +3746,14 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
     if "mha" in kinds:
         rec["mha"] += [mha_case(mha_kernel, g, torch.bfloat16, B=B, L=900) for B in (32, 8)]
         cases += rec["mha"][-2:]
+    # the float32 rows, drawn last
+    rec["f32"] = f32_cases(rcda_kernel, mha_kernel, g, kinds)
+    f32 = rec["f32"].get("rcda", []) + rec["f32"].get("mha", [])
     emit(rec)
-    bad = [c for c in cases + rec["edge"] if not in_tol(c)]
-    bad += [c for c in rec.get("mha", []) if not c["dead_row_within_tol"]]
+    bad = [c for c in cases + f32 + rec["edge"] if not (in_tol(c) and c.get("finite", True))]
+    bad += [c for c in rec.get("mha", []) + rec["f32"].get("mha", [])
+            if not (c["dead_row_finite"] and c["dead_row_within_tol"])]
+    bad += [c for c in rec["f32"]["determinism"] if not (c["deterministic"] and c["batch_invariant"])]
     bad += [c for c in rec.get("auction", [])
             if not (c["identical"] and all(x["identical"] for x in c["sweep"]))]
     if bad:

@@ -13,7 +13,11 @@ q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
 (B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
 dtype. A row whose keys are all masked gets the uniform softmax.
 
-Key lengths: both kernels make one pass over the keys with an online
+Float32 (the CLI's default ``--compute_dtype``) runs every product as three
+TF32 products on the tensor cores (3xTF32: f32 accuracy, within 1e-4 of
+the plain version).
+
+Key lengths: the kernels make one pass over the keys with an online
 softmax and keep no row of logits, so they take every key length (every
 stage-1 point tier included). Batches: any (the batch rides on the grid's
 x dimension with the query tiles). The bfloat16 kernel rounds the

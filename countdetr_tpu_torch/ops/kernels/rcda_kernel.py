@@ -9,8 +9,10 @@ versions, one pair per variant.
           ``csrc/rcda_rank1.cu`` (``fused_rcda_rank1``) and
           ``rcda_rank1_core_plain``.
 On a CUDA tensor it launches the variant's kernel; on a CPU tensor it runs
-the variant's plain version. There is no fallback between the two: a CUDA
-call that the kernel cannot take raises.
+the variant's plain version. The v3 kernel runs float32 (the CLI's default
+``--compute_dtype``) as three TF32 products per product on the tensor cores
+(3xTF32) where ``f32_route`` allows, else on the CUDA cores. There is no
+fallback between the two: a CUDA call that the kernel cannot take raises.
 
 Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   q_row, q_col : (B, L, E), pre-scaled by d**-0.5
@@ -37,6 +39,7 @@ from countdetr_tpu_torch.config import RCDA_VARIANTS
 from countdetr_tpu_torch.ops.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+F32_TENSOR_CORES = 2  # the C entry's code for float32 on the tensor cores
 HEAD_DIMS = (16, 32, 64)
 # H, W limit of the tensor-core paths (a_row held in registers), and of
 # the rank-1 kernel in both dtypes
@@ -95,6 +98,13 @@ def rcda_rank1_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num
     return out.reshape(B, L, E).to(q_row.dtype)
 
 
+def f32_route(H, W, d):
+    """The float32 v3 kernel for an H x W grid at head dim d: "tensor_cores"
+    (3xTF32 on wgmma; one 64-wide score tile, so H, W <= MAX_AXIS, and a row
+    of q or k in one 128-byte swizzle span, so d <= 32) or "cuda_cores"."""
+    return "tensor_cores" if max(H, W) <= MAX_AXIS and d <= 32 else "cuda_cores"
+
+
 PLAIN = {"v3": rcda_core_plain, "rank1": rcda_rank1_core_plain}
 SOURCES = {"v3": "rcda", "rank1": "rcda_rank1"}
 
@@ -148,7 +158,7 @@ def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant
 def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
                   variant="v3"):
     """The variant's kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+    tensors. A float32 v3 call takes ``f32_route``'s kernel."""
     global launches, rank1_launches
     if variant not in RCDA_VARIANTS:
         raise ValueError(f"rcda: variant must be one of {RCDA_VARIANTS}, got {variant!r}")
@@ -159,14 +169,18 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
     _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant)
     B, L, E = q_row.shape
     H, W = v.shape[1], v.shape[2]
+    code = DTYPE_CODES[q_row.dtype]
+    if (variant == "v3" and q_row.dtype == torch.float32
+            and f32_route(H, W, E // num_heads) == "tensor_cores"):
+        code = F32_TENSOR_CORES
     forward, smem_bytes = _lib(variant)
-    smem = smem_bytes(DTYPE_CODES[q_row.dtype], E // num_heads, H, W)
+    smem = smem_bytes(code, E // num_heads, H, W)
     if smem > 232448:
         raise ValueError(f"rcda: H={H}, W={W} need {smem} B of shared memory per block")
     out = torch.empty_like(q_row)
     stream = torch.cuda.current_stream(q_row.device).cuda_stream
     err = forward(
-        DTYPE_CODES[q_row.dtype],
+        code,
         q_row.data_ptr(), q_col.data_ptr(), k_row.data_ptr(), k_col.data_ptr(),
         v.data_ptr(), bias_row.data_ptr(), bias_col.data_ptr(), out.data_ptr(),
         B, L, H, W, E, num_heads, stream,
