@@ -23,10 +23,15 @@ Phases, each printed as one JSON line:
             S=900 (B=32 and 8) and at B=8 over the pseudo-label point tiers
             S=700 and S=5600, one row fully masked; MHA in float32 at B=8
             S=700 and 576 (the decoder's self-attention in the CLI's default
-            dtype); max error and its tolerance; each float32 case gives
-            its bound at the CUDA cores' 67 TFLOP/s too (cuda_core_bound_ms);
-            the float32 kernels at the ddp phase's shapes repeated (bit-equal)
-            and on each half of the batch (bit-equal to its rows);
+            dtype); max error and its tolerance; each case names the
+            source that ran: a float32 call of either variant runs rcda.cu
+            (3xTF32 on the tensor cores where H, W <= 64 and d <= 32, so
+            every case here), a bfloat16 rank-1 call rcda_rank1.cu; each
+            float32 case gives its bound at the CUDA cores' 67 TFLOP/s too
+            (cuda_core_bound_ms); the float32 kernels at the ddp phase's
+            shapes, and rank-1 at stage 1's (B=16, 24x42, L=1008), repeated
+            (bit-equal) and on each half of the batch (bit-equal to its
+            rows);
             the auction with tolerance 0 (assignments, rounds and bids
             identical) on the matcher's shapes: 8x576x700 transposed on
             random, DETR-shaped and degenerate costs (the DETR-shaped one
@@ -81,7 +86,9 @@ Phases, each printed as one JSON line:
   stage1_parity  the full-width stage-1 model in float32 on the card
             against the same weights on the CPU, B=2 in a 384x672 bucket
             with one padded image, 700 points of which 500 valid, under
-            rcda_variant "v3" and "rank1";
+            rcda_variant "v3" and "rank1"; counters zeroed just before each
+            card forward and read after (12 launches of the variant's RCDA
+            counter, 0 of the other's, 6 MHA);
   stage1_train   stage 1's train path: a bfloat16 stage-1 Trainer takes
             6 steps at B=8, 384x672, the 3 exemplar centres as queries
             (12 RCDA and 6 MHA launches per step); finite losses, frozen
@@ -94,7 +101,11 @@ Phases, each printed as one JSON line:
             "rank1" after a warm-up run of each: annotation
             counts equal the points, the two JSONs' w, h within 1 px, 12
             RCDA (resp. 12 rank-1) and 6 MHA launches per forward; images/s,
-            points/s and a profiled run of each variant;
+            points/s and a profiled run of each variant; then one float32
+            pass of each variant on the same weights (the CLI's default
+            dtype; rank-1's is the path of COUNTDETR_PALLAS_VARIANT=rank1):
+            finite boxes, one a point, the same launch counts, rank-1's
+            boxes within 1 px of v3's and the count of boxes that differ;
   engine    the training and evaluation engine at full width in bfloat16 on
             a synthetic FSCD-147 tree (48/16/16 JPEGs of 384x576, 4-400
             objects): FSC147Pseudo read raw uint8 into a shuffled Batcher
@@ -211,8 +222,9 @@ stdout.
                                                  # only these kernels' cases
                                                  # (rcda, rank1, mha, auction;
                                                  # rcda and mha add their
-                                                 # float32 rows of PERF.md and
-                                                 # their determinism check)
+                                                 # float32 rows of PERF.md,
+                                                 # rank1 its tp-rank rows;
+                                                 # each its determinism check)
     python3 chip_smoke.py --only bench           # build, then only the
                                                  # bench phase
     python3 chip_smoke.py --only engine          # likewise, the engine phase
@@ -343,7 +355,8 @@ STAGE1_SHAPE = dict(B=8, H=24, W=42, pad=(34, 20))
 
 def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3", pad=(30, 25)):
     """One RCDA core call of ``variant`` against its plain version; image 1
-    padded to ``pad`` (columns, rows), image 3 to 5 columns."""
+    padded to ``pad`` (columns, rows), image 3 to 5 columns. ``source`` is
+    the csrc/ file that ran (a float32 call of either variant: rcda.cu)."""
     dev = torch.device("cuda")
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
     d = E // n
@@ -377,11 +390,11 @@ def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3",
         "plain_ms": cuda_ms(lambda: plain(*args), 5),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "gflop": ops / 1e9, "mbytes": nbytes / 1e6, "gexp": exps / 1e9,
+        "source": rcda_kernel.kernel_route(variant, dt, H, W, d)[0],
     }
     if dt == torch.float32:
         rec["cuda_core_bound_ms"] = bound(ops, nbytes, dt, exps, peak=CUDA_CORE_F32)[0]
-        if variant == "v3":
-            rec["route"] = rcda_kernel.f32_route(H, W, d)
+        rec["route"] = rcda_kernel.f32_route(H, W, d)
     return rec
 
 
@@ -528,10 +541,12 @@ def edge_cases(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha")):
     return out
 
 
-def f32_determinism(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha"), reps=10):
+def f32_determinism(rcda_kernel, mha_kernel, g, kinds=("rcda", "rank1", "mha"), reps=10):
     """The float32 kernels at the ddp phase's shapes, one process's batch of
     16 at 592x592 (37x37; RCDA over L=1369 and 576 queries, MHA over L=S=576,
-    image 1 padded): ``reps`` more calls on the same inputs bit-equal to the
+    image 1 padded), and rank-1 (rcda.cu's kernel under its rank-1 caller)
+    at stage 1's, a batch of 16 in the 384x672 bucket (24x42, L=1008, image
+    1 padded): ``reps`` more calls on the same inputs bit-equal to the
     first (deterministic), and each rank's half of the batch on its own
     bit-equal to its rows of the whole (batch-invariant)."""
     dev = torch.device("cuda")
@@ -551,6 +566,15 @@ def f32_determinism(rcda_kernel, mha_kernel, g, kinds=("rcda", "mha"), reps=10):
         bias[1, 500:] = -1e30
         xs = [r(B, 576, E) * 32**-0.5, r(B, 576, E), r(B, 576, E), bias]
         calls.append(("mha L=S=576", lambda *a: mha_kernel.mha_core(*a, n), xs))
+    if "rank1" in kinds:
+        H1, W1, (pw, ph) = STAGE1_SHAPE["H"], STAGE1_SHAPE["W"], STAGE1_SHAPE["pad"]
+        bias_row, bias_col = torch.zeros(B, W1, device=dev), torch.zeros(B, H1, device=dev)
+        bias_row[1, pw:] = -1e30
+        bias_col[1, ph:] = -1e30
+        xs = [r(B, 1008, E) * 32**-0.5, r(B, 1008, E) * 32**-0.5, r(B, W1, E), r(B, H1, E),
+              r(B, H1, W1, E), bias_row, bias_col]
+        calls.append(("rcda_rank1 L=1008 24x42",
+                      lambda *a: rcda_kernel.rcda_core(*a, n, "rank1"), xs))
     out = []
     for name, fn, xs in calls:
         whole = fn(*xs)
@@ -568,7 +592,9 @@ def f32_cases(rcda_kernel, mha_kernel, g, kinds):
     24x42 (L=1008, 700) and a TP rank's E=128 (L=1369, 576); MHA at B=8
     S=700 / 576 (the decoder's self-attention over the point tiers), the
     longtail shapes (standard attention's encoder and cross-attention at
-    B=32, the level layer) and a TP rank's (L=S=1369 over the grid, 576)."""
+    B=32, the level layer) and a TP rank's (L=S=1369 over the grid, 576);
+    the determinism check of each of ``kinds`` (rank-1's rows are the
+    ``rank1`` cases of ``only_kernels``)."""
     f32 = torch.float32
     rec = {}
     if "rcda" in kinds:
@@ -962,21 +988,33 @@ def stage1_batch(rng, B, size, P, n_valid=None, pad=None):
 
 def stage1_parity_phase(rng, failures):
     """Full-width float32 stage 1: card (kernels) against CPU (plain), both
-    RCDA variants, the same weights."""
+    RCDA variants, the same weights; the card forward's launches counted
+    (12 of the variant's RCDA counter, 0 of the other's, 6 MHA)."""
     from countdetr_tpu_torch.config import stage1_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
 
     batch = stage1_batch(rng, 2, (384, 672), 700, n_valid=500, pad=(300, 500))
     keys = ("images", "pad_mask", "points", "points_valid")
-    rec = {}
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rec, launches = {}, {}
     for variant in ("v3", "rank1"):
         cfg = stage1_config(rcda_variant=variant)
         cpu_model = build_model(cfg, device="cpu", seed=0)
         perturb_(cpu_model, 3)
         gpu_model = build_model(cfg, device="cuda", state_dict=cpu_model.state_dict())
+        inputs = [torch.from_numpy(batch[k]).cuda() for k in keys]
         with torch.inference_mode():
-            out_gpu = gpu_model(*(torch.from_numpy(batch[k]).cuda() for k in keys))
+            torch.cuda.synchronize()
+            reset_launches(*kernels)
+            out_gpu = gpu_model(*inputs)
+            torch.cuda.synchronize()
+            launches[variant] = launch_counts(*kernels)
             out_cpu = cpu_model(*(torch.from_numpy(batch[k]) for k in keys))
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6, "auction": 0}
+        want["rcda" if variant == "v3" else "rcda_rank1"] = 12
+        if launches[variant] != want:
+            failures.append(("stage1 parity launches", variant, launches[variant], want))
         rec[variant] = {}
         for key in ("pred_logits", "pred_wh", "pred_points"):
             a, b = out_gpu[key].cpu(), out_cpu[key]
@@ -987,7 +1025,8 @@ def stage1_parity_phase(rng, failures):
         del cpu_model, gpu_model, out_gpu
     emit({"phase": "stage1_parity", "batch": 2, "bucket": [384, 672], "padded_image": [300, 500],
           "points": 700, "valid_points": [500, 700], "dtype": "float32", "tol": PARITY_TOL,
-          "outputs": rec})
+          "outputs": rec, "launches": launches})
+    return launches
 
 
 def stage1_train_phase(rng, smi, failures):
@@ -1061,8 +1100,56 @@ def pseudo_dataset(rng, n=18):
     return ds
 
 
+def pseudo_label_f32(ds, state, kw, n_points, n_batches, out_dir, failures):
+    """The CLI's default dtype under each variant: one float32 pass of "v3",
+    then of "rank1", over ``ds`` on the weights ``state``, the counters
+    zeroed just before each and read after (both variants take
+    csrc/rcda.cu's 3xTF32 kernel; rank-1's launches count as rank-1's):
+    finite boxes, one a point, rank-1's within 1 px of v3's, and how many
+    boxes differ at all."""
+    from countdetr_tpu_torch.config import stage1_config
+    from countdetr_tpu_torch.models.anchor_detr import build_model
+    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.train.engine import generate_pseudo_labels
+
+    kernels = (rcda_kernel, mha_kernel, auction_kernel)
+    rec, boxes = {}, {}
+    for v in ("v3", "rank1"):
+        model = build_model(stage1_config(rcda_variant=v), device="cuda", state_dict=state)
+        path = os.path.join(out_dir, f"pseudo_f32_{v}.json")
+        torch.cuda.synchronize()
+        reset_launches(*kernels)
+        t = time.perf_counter()
+        generate_pseudo_labels(model, ds, path, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = launch_counts(*kernels)
+        del model
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0}
+        want["rcda" if v == "v3" else "rcda_rank1"] = 12 * n_batches
+        if launches != want:
+            failures.append(("pseudo_label f32 launches", v, launches, want))
+        with open(path) as f:
+            anns = json.load(f)["annotations"]
+        boxes[v] = np.asarray([x["bbox"] for x in anns], np.float64)
+        if not (len(anns) == n_points and np.isfinite(boxes[v]).all()):
+            failures.append(("pseudo_label f32", v, len(anns), n_points, "finite",
+                             bool(np.isfinite(boxes[v]).all())))
+        rec[v] = {"seconds": seconds, "launches": launches, "launches_expected": want,
+                  "annotations": len(anns)}
+    a, b = boxes["v3"], boxes["rank1"]
+    same_layout = a.shape == b.shape and bool((a[:, :2] == b[:, :2]).all())
+    wh_diff = np.abs(a[:, 2:] - b[:, 2:]) if same_layout else np.asarray([np.inf])
+    if not (same_layout and wh_diff.max() <= 1):
+        failures.append(("pseudo_label f32 variants disagree", float(wh_diff.max())))
+    rec["wh_px_max_diff"] = float(wh_diff.max())
+    rec["boxes_differing"] = int((a != b).any(1).sum()) if same_layout else None
+    return rec
+
+
 def pseudo_label_phase(rng, smi, failures):
-    """Stage 1's main path: pseudo-labelling under both RCDA variants."""
+    """Stage 1's main path: pseudo-labelling under both RCDA variants, in
+    bfloat16 (timed and profiled) and in float32 (``pseudo_label_f32``)."""
     from countdetr_tpu_torch.config import stage1_config
     from countdetr_tpu_torch.data.batching import Batcher
     from countdetr_tpu_torch.models.anchor_detr import build_model
@@ -1121,6 +1208,9 @@ def pseudo_label_phase(rng, smi, failures):
     wh_diff = np.abs(a[:, 2:] - b[:, 2:]) if same_layout else np.asarray([np.inf])
     if not (same_layout and wh_diff.max() <= 1):
         failures.append(("pseudo_label variants disagree", float(wh_diff.max())))
+    del models
+    f32 = pseudo_label_f32(ds, state, kw, n_points, n_batches, out_dir, failures)
+    launches_by_variant.update({f"f32_{v}": f32[v]["launches"] for v in ("v3", "rank1")})
     emit({"phase": "pseudo_label", "dtype": "bfloat16", "images": len(ds),
           "points": n_points, "max_points_in_an_image": max(len(s["points"]) for s in ds),
           "batch_size": 8, "batches": n_batches, "point_tiers": tiers,
@@ -1128,7 +1218,7 @@ def pseudo_label_phase(rng, smi, failures):
           "wh_px_max_diff": float(wh_diff.max()),
           "wh_px_mean_abs_diff": float(wh_diff.mean()),
           "wh_px_share_differing": float((wh_diff > 0).mean()),
-          "wh_px_mean": float(a[:, 2:].mean()), "nvidia_smi": smi})
+          "wh_px_mean": float(a[:, 2:].mean()), "float32": f32, "nvidia_smi": smi})
     shutil.rmtree(out_dir)
     return launches_by_variant
 
@@ -3438,8 +3528,9 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "build_wall_s": build_wall,
           "rates": card_rates(), "ptxas": ptxas_report(str(_build.BUILD_DIR), _build.SOURCES),
           # the RCDA kernels' dynamic shared memory a block, bf16, d=32
-          "rcda_dynamic_smem": {f"{v} {H}x{W}": rcda_kernel._lib(v)[1](1, 32, H, W)
-                                for v in ("v3", "rank1") for H, W in ((37, 37), (24, 42))},
+          "rcda_dynamic_smem": {f"{src} {H}x{W}": rcda_kernel._lib(src)[1](1, 32, H, W)
+                                for src in ("rcda", "rcda_rank1")
+                                for H, W in ((37, 37), (24, 42))},
           # the auction's plan, shared memory a block and clusters resident at
           # once on the matcher's shapes (P x O)
           "auction_plan": {f"{P}x{O}": auction_plan(auction_kernel, P, O)
@@ -3601,7 +3692,7 @@ def main(argv=None) -> int:
     train_launches = train_phase(rng, smi, failures)
 
     # 7. stage 1: float32 parity, the train step, pseudo-labels
-    stage1_parity_phase(rng, failures)
+    stage1_parity_launches = stage1_parity_phase(rng, failures)
     stage1_launches = stage1_train_phase(rng, smi, failures)
     pseudo_launches = pseudo_label_phase(rng, smi, failures)
 
@@ -3651,7 +3742,10 @@ def main(argv=None) -> int:
     pseudo_total = {k: pseudo_launches["v3"][k] + pseudo_launches["rank1"][k]
                     for k in pseudo_launches["v3"]}
     paths = {"serving": launches, "train": train_launches, "stage1_train": stage1_launches,
-             "pseudo_label": pseudo_total}
+             "pseudo_label": pseudo_total,
+             "pseudo_label_f32_v3": pseudo_launches["f32_v3"],
+             "pseudo_label_f32_rank1": pseudo_launches["f32_rank1"]}
+    paths.update({f"stage1_parity_{v}": c for v, c in stage1_parity_launches.items()})
     paths.update(bench_launches)
     paths.update({f"defaults_{name}": counts_ for name, counts_ in defaults_launches.items()})
     paths.update({f"engine_{name}": counts_ for name, counts_ in engine_launches.items()})
@@ -3662,7 +3756,7 @@ def main(argv=None) -> int:
 
     def summary(key, replaces, source, cases, main_case, main_count, f32_case=None):
         f32 = {} if f32_case is None else {"f32": {k: f32_case.get(k) for k in (
-            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "shape", "source", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "cuda_core_bound_ms", "library_ms", "max_abs_err", "tol")}}
         return {**f32, "name": key, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": main_count,
@@ -3692,7 +3786,8 @@ def main(argv=None) -> int:
         summary("rcda_rank1", "countdetr_tpu/ops/pallas/rcda_kernel.py:153 fused_rcda_rank1",
                 "countdetr_tpu_torch/csrc/rcda_rank1.cu",
                 [c for c in rank1_cases + tp_cases["rcda_rank1"] if c["dtype"] == "bfloat16"],
-                pick(rank1_cases, B=8, L=1008), cli_main["rcda_rank1"]),
+                pick(rank1_cases, B=8, L=1008), cli_main["rcda_rank1"],
+                pick(rank1_cases, B=8, L=1008, dtype="float32")),
         summary("mha", "countdetr_tpu/ops/pallas/mha_kernel.py:64 fused_mha",
                 "countdetr_tpu_torch/csrc/mha.cu",
                 [c for c in mha_cases + tp_cases["mha"] if c["dtype"] == "bfloat16"]
@@ -3724,11 +3819,14 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
                         for L in (1008, 700)]
         rec["rcda"] += [rcda_case(rcda_kernel, g, torch.float32, 576)]
         cases += rec["rcda"]
-    if "rank1" in kinds:  # the kernels phase's rank-1 cases
+    if "rank1" in kinds:  # the kernels phase's rank-1 cases, then the tp phase's
         rec["rcda_rank1"] = [
             rcda_case(rcda_kernel, g, dt, L, variant="rank1", **kw)
             for dt in (torch.bfloat16, torch.float32)
             for L, kw in ((1008, STAGE1_SHAPE), (700, STAGE1_SHAPE), (1369, {}), (576, {}))]
+        rec["rcda_rank1"] += [
+            rcda_case(rcda_kernel, g, dt, L, variant="rank1", E=TP_E, n=TP_HEADS, **STAGE1_SHAPE)
+            for dt in (torch.bfloat16, torch.float32) for L in (1008, 700)]
         cases += rec["rcda_rank1"]
     if "mha" in kinds:
         rec["mha"] = [mha_case(mha_kernel, g, torch.bfloat16),

@@ -30,7 +30,12 @@
 //    to bf16 as register A operands; for each group of kN / D rows of H,
 //    hid = a_row [v[h] | v[h+1] ...] by one wgmma m64n64k16 chain, then
 //    out += a_col[l, h] * hid[h] in registers.
-//  * float32 (the CLI's default dtype; f32tc below): every product in
+//  * float32 (the CLI's default dtype), for both variants: the wrapper
+//    (ops/kernels/rcda_kernel.py::kernel_route) sends float32 rank-1 calls
+//    here too, since rounding P once (rank-1) or each probability map (v3)
+//    to float32 is the identity, and the two formulations are one function
+//    up to the order of an f32 sum.
+//  * float32 on the tensor cores (f32tc below): every product in
 //    3xTF32 on the tensor cores (tf32.cuh), so f32 accuracy at 495 / 3
 //    TFLOP/s: 0.201 ms of operations at B=32, L=1369. Two consumer
 //    warpgroups over 4 query tiles of one (batch, head) and a producer

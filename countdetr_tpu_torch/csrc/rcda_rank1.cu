@@ -38,8 +38,17 @@
 //    over all h: no per-h intermediate, no a_col rescale. Two sets of A
 //    registers alternate, so P_{h+1} is formed while the product on P_h is
 //    in flight.
-//  * float32 (parity only): CUDA cores, each thread a 4 query x 4 channel
-//    register tile, P formed in f32 per (h, w) and multiplied into v.
+//  * float32 (the CLI's default dtype) has no kernel here: the wrapper
+//    (ops/kernels/rcda_kernel.py::kernel_route) sends a float32 rank-1 call
+//    to rcda.cu's float32 kernels, 3xTF32 on the tensor cores where H, W <=
+//    64 and d <= 32, else its CUDA-core kernel. In float32 rounding P, or
+//    each probability map, to v's dtype is the identity, so the rank-1 and
+//    the two-stage formulations are one function up to the order of an f32
+//    sum (the plain versions differ by under 1e-6 at the stage-1 shapes),
+//    and rcda.cu's 3xTF32 combine (hid^T = v^T a_row^T, the value group the
+//    register A operand) avoids the transposition of P_h or v[h] that a
+//    one-contraction tf32 kernel would need: wgmma reads tf32 operands from
+//    shared memory only K-major.
 // The TPU kernel's expand matrix and pltpu.repeat (Mosaic's way to build P
 // on chip) have no counterpart: here P never leaves the registers.
 
@@ -50,7 +59,6 @@
 
 #include "hopper.cuh"
 #include "mma.cuh"
-#include "rcda_scores.cuh"
 #include "rcda_wgmma.cuh"
 
 namespace {
@@ -128,138 +136,47 @@ rcda_rank1_wgmma_kernel(const __grid_constant__ CUtensorMap map_qr,
                                       bias_col, out, L, H, W, E, stages);
 }
 
-// ------------------------------------------------------------- float32 ---
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-rcda_rank1_f32_kernel(const float* __restrict__ q_row, const float* __restrict__ q_col,
-                      const float* __restrict__ k_row, const float* __restrict__ k_col,
-                      const float* __restrict__ v, const float* __restrict__ bias_row,
-                      const float* __restrict__ bias_col, float* __restrict__ out,
-                      int L, int H, int W, int E) {
-  using Tl = Tiling<D>;
-  constexpr int TL = Tl::TL;
-  extern __shared__ __align__(16) float smem[];
-  const ScoreLayout lay(TL, D, H, W);
-  const float* s_arow = smem + lay.arow;  // [W][TL]
-  const float* s_acol = smem + lay.acol;  // [H][TL]
-  float* s_v = smem + lay.qr;  // [W][D], reuses the q tiles (W * D <= 2 * TL * (D + 4))
-
-  const int tid = threadIdx.x;
-  const int l0 = blockIdx.x * TL;
-  const int hoff = blockIdx.y * D;
-  const size_t b = blockIdx.z;
-  scores_and_softmax<float, D, TL, false>(smem, lay, q_row, q_col, k_row, k_col, bias_row,
-                                          bias_col, b, l0, hoff, L, H, W, E);
-  __syncthreads();
-
-  // out[l, c] = sum_h sum_w (a_col[l, h] * a_row[l, w]) v[h, w, c]
-  const int cg = tid % Tl::CG;
-  const int qg = tid / Tl::CG;
-  float acc[4][4] = {};
-  for (int h = 0; h < H; ++h) {
-    const float* vrow = v + (b * H + h) * W * E + hoff;
-    staged_copy<16, kThreads>(
-        W * D, [&](int i) { return vrow[static_cast<size_t>(i / D) * E + i % D]; },
-        [&](int i, float x) { s_v[i] = x; });
-    __syncthreads();
-    const float4 ac = *reinterpret_cast<const float4*>(s_acol + h * TL + qg * 4);
-    const float c4[4] = {ac.x, ac.y, ac.z, ac.w};
-    for (int w = 0; w < W; ++w) {
-      const float4 ar = *reinterpret_cast<const float4*>(s_arow + w * TL + qg * 4);
-      const float4 vv = *reinterpret_cast<const float4*>(s_v + w * D + cg * 4);
-      const float p4[4] = {c4[0] * ar.x, c4[1] * ar.y, c4[2] * ar.z, c4[3] * ar.w};
-      const float v4[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(p4[i], v4[c], acc[i][c]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int l = l0 + qg * 4 + i;
-    if (l >= L) continue;
-    float* o = out + (b * L + l) * E + hoff + cg * 4;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[c] = acc[i][c];
-  }
-}
-
 // ------------------------------------------------------------ dispatch ---
 
 template <int D>
-size_t smem_bytes_d(int dtype, int H, int W) {
-  if (dtype == 0) return static_cast<size_t>(ScoreLayout(Tiling<D>::TL, D, H, W).end) * 4;
-  return rcda_wgmma::smem_bytes(D, H, W);
-}
-
-size_t smem_bytes(int dtype, int D, int H, int W) {
-  switch (D) {
-    case 16: return smem_bytes_d<16>(dtype, H, W);
-    case 32: return smem_bytes_d<32>(dtype, H, W);
-    case 64: return smem_bytes_d<64>(dtype, H, W);
-    default: return 0;
-  }
-}
-
-template <int D>
-int launch(int dtype, const void* q_row, const void* q_col, const void* k_row,
-           const void* k_col, const void* v, const void* bias_row,
-           const void* bias_col, void* out, int B, int L, int H, int W, int E,
-           int num_heads, cudaStream_t stream) {
-  if (H > rcda_wgmma::kMaxAxis || W > rcda_wgmma::kMaxAxis)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes_d<D>(dtype, H, W);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err;
-  if (dtype == 0) {
-    auto kern = rcda_rank1_f32_kernel<D>;
-    err = cudaFuncSetAttribute(kern, attr, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L + Tiling<D>::TL - 1) / Tiling<D>::TL, num_heads, B);
-    using F = const float*;
-    kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<F>(q_row), static_cast<F>(q_col), static_cast<F>(k_row),
-        static_cast<F>(k_col), static_cast<F>(v), static_cast<F>(bias_row),
-        static_cast<F>(bias_col), static_cast<float*>(out), L, H, W, E);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch(const void* q_row, const void* q_col, const void* k_row, const void* k_col,
+           const void* v, const void* bias_row, const void* bias_col, void* out, int B, int L,
+           int H, int W, int E, int num_heads, cudaStream_t stream) {
   return rcda_wgmma::launch<D>(rcda_rank1_wgmma_kernel<D>, q_row, q_col, k_row, k_col, v,
                                bias_row, bias_col, out, B, L, H, W, E, num_heads, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor, biases included).
+// dtype: 1 = bfloat16 (every tensor, biases included); any other code is
+// refused with cudaErrorInvalidValue (float32 rank-1 calls take rcda.cu).
 // Returns cudaGetLastError() after the launch; 0 means it was queued.
 extern "C" int rcda_rank1_forward(int dtype, const void* q_row, const void* q_col,
                                   const void* k_row, const void* k_col,
                                   const void* v, const void* bias_row,
                                   const void* bias_col, void* out, int B, int L,
                                   int H, int W, int E, int num_heads, void* stream) {
-  if (num_heads <= 0 || E % num_heads || (dtype != 0 && dtype != 1))
+  if (num_heads <= 0 || E % num_heads || dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E / num_heads) {
     case 16:
-      return launch<16>(dtype, q_row, q_col, k_row, k_col, v, bias_row, bias_col,
-                        out, B, L, H, W, E, num_heads, s);
+      return launch<16>(q_row, q_col, k_row, k_col, v, bias_row, bias_col, out, B, L, H, W,
+                        E, num_heads, s);
     case 32:
-      return launch<32>(dtype, q_row, q_col, k_row, k_col, v, bias_row, bias_col,
-                        out, B, L, H, W, E, num_heads, s);
+      return launch<32>(q_row, q_col, k_row, k_col, v, bias_row, bias_col, out, B, L, H, W,
+                        E, num_heads, s);
     case 64:
-      return launch<64>(dtype, q_row, q_col, k_row, k_col, v, bias_row, bias_col,
-                        out, B, L, H, W, E, num_heads, s);
+      return launch<64>(q_row, q_col, k_row, k_col, v, bias_row, bias_col, out, B, L, H, W,
+                        E, num_heads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Shared-memory bytes one block needs (0 for an unsupported head dim).
+// Shared-memory bytes one bfloat16 block needs (0 for another dtype or an
+// unsupported head dim).
 extern "C" long long rcda_rank1_smem_bytes(int dtype, int D, int H, int W) {
-  return static_cast<long long>(smem_bytes(dtype, D, H, W));
+  const bool ok = dtype == 1 && (D == 16 || D == 32 || D == 64);
+  return ok ? static_cast<long long>(rcda_wgmma::smem_bytes(D, H, W)) : 0;
 }

@@ -1,6 +1,8 @@
-// The score phase shared by the two RCDA kernels (rcda.cu, rcda_rank1.cu):
-// both 1-D score products and both softmaxes of one (query tile, head,
-// batch) block, in f32 on the CUDA cores, written to shared memory.
+// The score phase of rcda.cu's CUDA-core float32 kernel (the float32 calls
+// of either RCDA variant past the 3xTF32 kernel's limits): both 1-D score
+// products and both softmaxes of one (query tile, head, batch) block, in f32
+// on the CUDA cores, written to shared memory; and the block size and
+// shared-memory limit the RCDA kernels share (rcda_wgmma.cuh).
 
 #pragma once
 
@@ -46,8 +48,8 @@ struct ScoreLayout {
 
 // Stage the q tile, the head's key slices and the biases, then write both
 // softmaxes into s + lay.arow / lay.acol (zero for queries past L). With
-// kRoundRow, a_row is rounded to T (the two-stage kernel's numerics); the
-// rank-1 kernel keeps both maps in f32. Ends with the probabilities written
+// kRoundRow, a_row is rounded to T (the two-stage kernel's numerics; the
+// identity for T = float). Ends with the probabilities written
 // by each thread; the caller synchronises.
 template <typename T, int D, int TL, bool kRoundRow>
 __device__ void scores_and_softmax(

@@ -8,11 +8,15 @@ versions, one pair per variant.
   "rank1" one contraction over H*W of the rank-1 probabilities:
           ``csrc/rcda_rank1.cu`` (``fused_rcda_rank1``) and
           ``rcda_rank1_core_plain``.
-On a CUDA tensor it launches the variant's kernel; on a CPU tensor it runs
-the variant's plain version. The v3 kernel runs float32 (the CLI's default
-``--compute_dtype``) as three TF32 products per product on the tensor cores
-(3xTF32) where ``f32_route`` allows, else on the CUDA cores. There is no
-fallback between the two: a CUDA call that the kernel cannot take raises.
+On a CUDA tensor it launches a kernel (``kernel_route``); on a CPU tensor it
+runs the variant's plain version. The two formulations differ only in where
+they round to v's dtype (v3 each probability map, rank-1 the product P
+once); in float32 both roundings are the identity and they are one function
+up to the order of an f32 sum. So every float32 call, of either variant,
+takes ``csrc/rcda.cu``: three TF32 products per product on the tensor cores
+(3xTF32) where ``f32_route`` allows, else its CUDA-core kernel. A bfloat16
+call takes its variant's kernel. There is no fallback between kernels: a
+CUDA call that the chosen kernel cannot take raises.
 
 Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   q_row, q_col : (B, L, E), pre-scaled by d**-0.5
@@ -39,14 +43,14 @@ from countdetr_tpu_torch.config import RCDA_VARIANTS
 from countdetr_tpu_torch.ops.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-F32_TENSOR_CORES = 2  # the C entry's code for float32 on the tensor cores
+F32_TENSOR_CORES = 2  # csrc/rcda.cu's code for float32 on the tensor cores
 HEAD_DIMS = (16, 32, 64)
-# H, W limit of the tensor-core paths (a_row held in registers), and of
-# the rank-1 kernel in both dtypes
+# H, W limit of the tensor-core paths (a_row held in registers): the bf16
+# kernels of both variants and rcda.cu's 3xTF32 kernel
 MAX_AXIS = 64
 
-# Kernel launches since the counter was last reset (by whoever reads it):
-# csrc/rcda.cu and csrc/rcda_rank1.cu.
+# Kernel launches since the counter was last reset (by whoever reads it),
+# counted by variant, whichever source ran: v3 calls, rank-1 calls.
 launches = 0
 rank1_launches = 0
 
@@ -99,21 +103,39 @@ def rcda_rank1_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num
 
 
 def f32_route(H, W, d):
-    """The float32 v3 kernel for an H x W grid at head dim d: "tensor_cores"
-    (3xTF32 on wgmma; one 64-wide score tile, so H, W <= MAX_AXIS, and a row
-    of q or k in one 128-byte swizzle span, so d <= 32) or "cuda_cores"."""
+    """csrc/rcda.cu's float32 kernel (either variant) for an H x W grid at
+    head dim d: "tensor_cores" (3xTF32 on wgmma; one 64-wide score tile, so
+    H, W <= MAX_AXIS, and a row of q or k in one 128-byte swizzle span, so
+    d <= 32) or "cuda_cores"."""
     return "tensor_cores" if max(H, W) <= MAX_AXIS and d <= 32 else "cuda_cores"
 
 
 PLAIN = {"v3": rcda_core_plain, "rank1": rcda_rank1_core_plain}
+# the bf16 kernel of each variant; float32 calls of both take "rcda"
 SOURCES = {"v3": "rcda", "rank1": "rcda_rank1"}
 
 
-def _lib(variant: str):
-    """The variant's (forward, smem_bytes) C entry points."""
-    name = SOURCES[variant]
-    lib = _build.load(name)
-    fwd, smem = getattr(lib, f"{name}_forward"), getattr(lib, f"{name}_smem_bytes")
+def kernel_route(variant, dtype, H, W, d):
+    """(source, code) of the kernel that takes a CUDA call: the csrc/ file
+    and its C entry's dtype code. float32, either variant: ``rcda`` on the
+    tensor cores (``F32_TENSOR_CORES``) where ``f32_route`` allows, else on
+    its CUDA cores (0). bfloat16: the variant's own kernel (1), which takes
+    H, W <= MAX_AXIS. Raises ValueError where no kernel takes the call."""
+    if dtype == torch.float32:
+        tensor_cores = f32_route(H, W, d) == "tensor_cores"
+        return "rcda", F32_TENSOR_CORES if tensor_cores else DTYPE_CODES[dtype]
+    if dtype != torch.bfloat16:
+        raise ValueError(f"rcda: dtype {dtype} not supported (float32, bfloat16)")
+    if max(H, W) > MAX_AXIS:
+        raise ValueError(f"rcda: the {variant} bfloat16 kernel takes H, W <= {MAX_AXIS}, "
+                         f"got {H}, {W}")
+    return SOURCES[variant], DTYPE_CODES[dtype]
+
+
+def _lib(source: str):
+    """The (forward, smem_bytes) C entry points of csrc/<source>.cu."""
+    lib = _build.load(source)
+    fwd, smem = getattr(lib, f"{source}_forward"), getattr(lib, f"{source}_smem_bytes")
     if fwd.argtypes is None:
         fwd.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -126,6 +148,8 @@ def _lib(variant: str):
 
 
 def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant):
+    """Raise ValueError unless a kernel takes the call; return
+    ``kernel_route``'s (source, code)."""
     tensors = dict(q_row=q_row, q_col=q_col, k_row=k_row, k_col=k_col, v=v,
                    bias_row=bias_row, bias_col=bias_col)
     for name, t in tensors.items():
@@ -137,8 +161,6 @@ def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant
             raise ValueError(f"rcda: {name} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"rcda: {name} is not 16-byte aligned")
-    if q_row.dtype not in DTYPE_CODES:
-        raise ValueError(f"rcda: dtype {q_row.dtype} not supported (float32, bfloat16)")
     if q_row.dim() != 3 or v.dim() != 4:
         raise ValueError(f"rcda: q_row {tuple(q_row.shape)} / v {tuple(v.shape)} ranks")
     B, L, E = q_row.shape
@@ -150,15 +172,13 @@ def _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant
             raise ValueError(f"rcda: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
     if E % num_heads or E // num_heads not in HEAD_DIMS:
         raise ValueError(f"rcda: head dim {E}/{num_heads} not in {HEAD_DIMS}")
-    if max(H, W) > MAX_AXIS and (variant == "rank1" or q_row.dtype == torch.bfloat16):
-        raise ValueError(f"rcda: the {variant} {q_row.dtype} kernel takes H, W <= {MAX_AXIS}, "
-                         f"got {H}, {W}")
+    return kernel_route(variant, q_row.dtype, H, W, E // num_heads)
 
 
 def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
                   variant="v3"):
-    """The variant's kernel for CUDA tensors, its plain version for CPU
-    tensors. A float32 v3 call takes ``f32_route``'s kernel."""
+    """``kernel_route``'s kernel for CUDA tensors, the variant's plain
+    version for CPU tensors."""
     global launches, rank1_launches
     if variant not in RCDA_VARIANTS:
         raise ValueError(f"rcda: variant must be one of {RCDA_VARIANTS}, got {variant!r}")
@@ -166,14 +186,11 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
         return PLAIN[variant](q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads)
     if q_row.device.type != "cuda":
         raise ValueError(f"rcda: no kernel for device {q_row.device}")
-    _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant)
+    source, code = _check(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
+                          variant)
     B, L, E = q_row.shape
     H, W = v.shape[1], v.shape[2]
-    code = DTYPE_CODES[q_row.dtype]
-    if (variant == "v3" and q_row.dtype == torch.float32
-            and f32_route(H, W, E // num_heads) == "tensor_cores"):
-        code = F32_TENSOR_CORES
-    forward, smem_bytes = _lib(variant)
+    forward, smem_bytes = _lib(source)
     smem = smem_bytes(code, E // num_heads, H, W)
     if smem > 232448:
         raise ValueError(f"rcda: H={H}, W={W} need {smem} B of shared memory per block")
@@ -186,7 +203,7 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
         B, L, H, W, E, num_heads, stream,
     )
     if err != 0:
-        raise RuntimeError(f"{SOURCES[variant]} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
     if variant == "rank1":
         rank1_launches += 1
     else:

@@ -1,16 +1,17 @@
-"""The rank-1 RCDA kernel's combine arithmetic against the JAX package, on
-the CPU.
+"""The rank-1 RCDA combine arithmetic against the JAX package, on the CPU.
 
-``csrc/rcda_rank1.cu`` cannot run here, so ``rank1_combine`` writes its
-rounding points in torch: f32 scores plus the bias, both softmaxes in f32
-as 2^(x log2 e - max) and neither rounded; for each H row, P_h = a_col[:, h]
-* a_row in f32, rounded once to the value dtype, with W padded to a
-multiple of 16 by zero columns (and zero value rows); one f32 accumulation
-of P_h v[h] over all h, rounded once to q's dtype. That is held against the
-JAX package's Pallas ``fused_rcda_rank1`` in interpret mode at a 37x37 grid
-with a padded image and at the stage-1 24x42 grid: within 2e-2 in bfloat16
-(the rank-1 kernel's tolerance against its plain version) and 2e-5 in
-float32.
+``csrc/rcda_rank1.cu`` (the bfloat16 rank-1 kernel) cannot run here, so
+``rank1_combine`` writes the rank-1 rounding points in torch: f32 scores
+plus the bias, both softmaxes in f32 as 2^(x log2 e - max) and neither
+rounded; for each H row, P_h = a_col[:, h] * a_row in f32, rounded once
+to the value dtype, with W padded to a multiple of 16 by zero columns (and
+zero value rows); one f32 accumulation of P_h v[h] over all h, rounded
+once to q's dtype. That is held against the JAX package's Pallas
+``fused_rcda_rank1`` in interpret mode at a 37x37 grid with a padded image
+and at the stage-1 24x42 grid: within 2e-2 in bfloat16 (the rank-1
+kernel's tolerance against its plain version) and 2e-5 in float32. A
+float32 rank-1 call runs csrc/rcda.cu's 3xTF32 kernel instead
+(test_torch_rank1_f32.py); here float32 checks the rank-1 arithmetic.
 """
 
 import jax.numpy as jnp
@@ -33,7 +34,8 @@ def softmax2(x):
 
 
 def rank1_combine(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
-    """csrc/rcda_rank1.cu's arithmetic in torch: (B, L, E) in q_row's dtype."""
+    """The rank-1 arithmetic (csrc/rcda_rank1.cu's in bfloat16) in torch:
+    (B, L, E) in q_row's dtype."""
     B, L, E = q_row.shape
     H, W = v.shape[1], v.shape[2]
     d = E // num_heads
