@@ -263,6 +263,8 @@ import time
 import numpy as np
 import torch
 
+from countdetr_tpu_torch.utils.trace import launch_counts, reset_launches
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("bench", "engine", "cli", "defaults", "longtail", "ddp", "tp",
           "convergence")  # with --only
@@ -794,25 +796,11 @@ def train_batch(rng, B, size, T, n_valid_first=None, pad=None):
             "boxes": boxes, "boxes_valid": valid, "batch_valid": np.ones(B, bool)}
 
 
-def reset_launches(*mods):
-    for m in mods:
-        m.launches = 0
-        if hasattr(m, "rank1_launches"):
-            m.rank1_launches = 0
-
-
-def launch_counts(rcda_kernel, mha_kernel, auction_kernel):
-    """Every kernel's launches since the counters were last zeroed."""
-    return {"rcda": rcda_kernel.launches, "rcda_rank1": rcda_kernel.rank1_launches,
-            "mha": mha_kernel.launches, "auction": auction_kernel.launches}
-
-
 def grad_phase(rng, failures):
     """Autograd through the kernels on the card against the plain path on
     the CPU, float32, same weights, same batch, the card's match."""
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.ops.losses import MatchedTargets
     from countdetr_tpu_torch.train.train_step import prepare_stage2_batch, stage2_loss
 
@@ -822,12 +810,11 @@ def grad_phase(rng, failures):
     gpu_model = build_model(cfg, device="cuda", state_dict=cpu_model.state_dict()).train()
     cpu_model.train()
     batch = train_batch(rng, 2, 256, 64, n_valid_first=30, pad=(200, 176))
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
-    reset_launches(*kernels)
+    reset_launches()
     total_g, parts_g, match = stage2_loss(gpu_model, prepare_stage2_batch(batch, "cuda"), tcfg)
     total_g.backward()
     torch.cuda.synchronize()
-    launches = launch_counts(*kernels)
+    launches = launch_counts()
     want_launches = {"rcda": 4, "rcda_rank1": 0, "mha": 2, "auction": 1}
     if launches != want_launches:
         failures.append(("grad launches", launches, want_launches))
@@ -866,7 +853,6 @@ def train_phase(rng, smi, failures):
     """The stage-2 train path: a bfloat16 Trainer at full width on the card."""
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train.optimizer import clip_gradients
     from countdetr_tpu_torch.train.train_step import Trainer, prepare_stage2_batch, stage2_loss
 
@@ -891,10 +877,9 @@ def train_phase(rng, smi, failures):
         return out
 
     matching.batched_match = timed_match
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*kernels)
+    reset_launches()
     step_ms, metrics = [], []
     try:
         for T in plan:
@@ -905,7 +890,7 @@ def train_phase(rng, smi, failures):
             metrics.append({k: v.item() for k, v in m.items()})
     finally:
         matching.batched_match = solve
-    launches = launch_counts(*kernels)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want_launches = {"rcda": 12 * len(plan), "rcda_rank1": 0, "mha": 6 * len(plan),
                      "auction": len(plan)}
@@ -992,11 +977,9 @@ def stage1_parity_phase(rng, failures):
     (12 of the variant's RCDA counter, 0 of the other's, 6 MHA)."""
     from countdetr_tpu_torch.config import stage1_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
 
     batch = stage1_batch(rng, 2, (384, 672), 700, n_valid=500, pad=(300, 500))
     keys = ("images", "pad_mask", "points", "points_valid")
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rec, launches = {}, {}
     for variant in ("v3", "rank1"):
         cfg = stage1_config(rcda_variant=variant)
@@ -1006,10 +989,10 @@ def stage1_parity_phase(rng, failures):
         inputs = [torch.from_numpy(batch[k]).cuda() for k in keys]
         with torch.inference_mode():
             torch.cuda.synchronize()
-            reset_launches(*kernels)
+            reset_launches()
             out_gpu = gpu_model(*inputs)
             torch.cuda.synchronize()
-            launches[variant] = launch_counts(*kernels)
+            launches[variant] = launch_counts()
             out_cpu = cpu_model(*(torch.from_numpy(batch[k]) for k in keys))
         want = {"rcda": 0, "rcda_rank1": 0, "mha": 6, "auction": 0}
         want["rcda" if variant == "v3" else "rcda_rank1"] = 12
@@ -1032,7 +1015,6 @@ def stage1_parity_phase(rng, failures):
 def stage1_train_phase(rng, smi, failures):
     """Stage 1's train path: a bfloat16 stage-1 Trainer at full width."""
     from countdetr_tpu_torch.config import TrainConfig, stage1_config
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
 
     from countdetr_tpu_torch.train.train_step import Trainer
 
@@ -1042,10 +1024,9 @@ def stage1_train_phase(rng, smi, failures):
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     trainable = {n for n, p in model.named_parameters() if p.requires_grad}
     batches = [stage1_batch(rng, 8, (384, 672), 3) for _ in range(2)]
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*kernels)
+    reset_launches()
     step_ms, metrics = [], []
     for i in range(6):
         t = time.perf_counter()
@@ -1053,7 +1034,7 @@ def stage1_train_phase(rng, smi, failures):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         metrics.append({k: v.item() for k, v in m.items()})
-    launches = launch_counts(*kernels)
+    launches = launch_counts()
     want = {"rcda": 12 * 6, "rcda_rank1": 0, "mha": 6 * 6, "auction": 0}
     if launches != want:
         failures.append(("stage1 train launches", launches, want))
@@ -1109,21 +1090,19 @@ def pseudo_label_f32(ds, state, kw, n_points, n_batches, out_dir, failures):
     boxes differ at all."""
     from countdetr_tpu_torch.config import stage1_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train.engine import generate_pseudo_labels
 
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rec, boxes = {}, {}
     for v in ("v3", "rank1"):
         model = build_model(stage1_config(rcda_variant=v), device="cuda", state_dict=state)
         path = os.path.join(out_dir, f"pseudo_f32_{v}.json")
         torch.cuda.synchronize()
-        reset_launches(*kernels)
+        reset_launches()
         t = time.perf_counter()
         generate_pseudo_labels(model, ds, path, **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = launch_counts(*kernels)
+        launches = launch_counts()
         del model
         want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0}
         want["rcda" if v == "v3" else "rcda_rank1"] = 12 * n_batches
@@ -1153,7 +1132,6 @@ def pseudo_label_phase(rng, smi, failures):
     from countdetr_tpu_torch.config import stage1_config
     from countdetr_tpu_torch.data.batching import Batcher
     from countdetr_tpu_torch.models.anchor_detr import build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train.engine import generate_pseudo_labels, point_tiers
 
     ds = pseudo_dataset(rng)
@@ -1162,7 +1140,6 @@ def pseudo_label_phase(rng, smi, failures):
     tiers = sorted({b["points"].shape[1] for b in Batcher(
         ds, 8, STAGE1_BUCKETS, max_points=700, point_tiers=point_tiers(700))})
     out_dir = tempfile.mkdtemp(prefix="pseudo_labels_")
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     cpu_model = build_model(stage1_config(), device="cpu", seed=0)
     perturb_(cpu_model, 5)  # the wh head must depend on the image
     state = cpu_model.state_dict()
@@ -1176,13 +1153,13 @@ def pseudo_label_phase(rng, smi, failures):
     # timed, counters zeroed just before each run and read after
     for v in ("v3", "rank1"):
         torch.cuda.synchronize()
-        reset_launches(*kernels)
+        reset_launches()
         t = time.perf_counter()
         generate_pseudo_labels(models[v], ds, paths[v], also_xywh_path=paths[v][:-5] + "_xywh.json",
                                **kw)
         torch.cuda.synchronize()
         rec[v]["seconds"].append(time.perf_counter() - t)
-        rec[v]["launches"].append(launch_counts(*kernels))
+        rec[v]["launches"].append(launch_counts())
     jsons, launches_by_variant = {}, {}
     for v, r in rec.items():
         key = "rcda" if v == "v3" else "rcda_rank1"
@@ -1378,12 +1355,10 @@ def engine_phase(smi, failures, out_dir):
     from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
     from countdetr_tpu_torch.eval.coco_eval import CocoEvaluator
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train import checkpoints, engine
     from countdetr_tpu_torch.train import train_step as ts
 
     t_phase = time.perf_counter()
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     os.makedirs(out_dir, exist_ok=True)
     work = tempfile.mkdtemp(prefix="engine_")
     root, ckpt_dir = os.path.join(work, "fscd147"), os.path.join(work, "checkpoints")
@@ -1422,13 +1397,13 @@ def engine_phase(smi, failures, out_dir):
         when ``profiled``, the device's idle share over it."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(*kernels)
+        reset_launches()
         prof = None
         if profiled:
             (out, wall, phases), prof = profile_run(lambda: clock.run(fn, forward_of))
         else:
             out, wall, phases = clock.run(fn, forward_of)
-        launches = launch_counts(*kernels)
+        launches = launch_counts()
         if launches != want:
             failures.append(("engine launches", name, launches, want))
         rec["loops"][name] = {"wall_s": wall, "images": n_img, "img_per_s": n_img / wall,
@@ -1603,11 +1578,9 @@ def cli_phase(smi, failures, out_dir):
     from countdetr_tpu_torch.data.fscd147 import FSC147Pseudo
     from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
     from countdetr_tpu_torch.models.anchor_detr import CountingDetr
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train import engine
 
     t_phase = time.perf_counter()
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     work = tempfile.mkdtemp(prefix="cli_")
     root = os.path.join(work, "fscd147")
     s1, s2 = os.path.join(work, "stage1"), os.path.join(work, "stage2")
@@ -1644,7 +1617,7 @@ def cli_phase(smi, failures, out_dir):
         os.environ["COUNTDETR_PALLAS_VARIANT"] = variant
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(*kernels)
+        reset_launches()
         forwards[0] = 0
         del epochs[:]
         t0 = time.perf_counter()
@@ -1652,7 +1625,7 @@ def cli_phase(smi, failures, out_dir):
             result = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, n = launch_counts(*kernels), forwards[0]
+        launches, n = launch_counts(), forwards[0]
         expected = want_of(n)
         if launches != expected:
             failures.append(("cli launches", name, n, launches, expected))
@@ -1872,13 +1845,11 @@ def defaults_phase(rng, smi, failures):
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.serve import Predictor, pack_requests
     from countdetr_tpu_torch.train.train_step import Trainer
 
     t_phase = time.perf_counter()
     S, SB, TB = DEFAULTS_SIZE, DEFAULTS_SERVE_BATCH, DEFAULTS_TRAIN_BATCH
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rec = {"phase": "defaults", "model": DEFAULTS, "queries": 900}
     paths = {}
 
@@ -1920,7 +1891,7 @@ def defaults_phase(rng, smi, failures):
     batches = [make_packed_batch(rng, [(S, S)] * SB) for _ in range(3)]
     pred.predict(batches[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
-    reset_launches(*kernels)
+    reset_launches()
     predict_ms, counts = [], []
     for reqs in batches:
         t = time.perf_counter()
@@ -1930,7 +1901,7 @@ def defaults_phase(rng, smi, failures):
         if not all(np.isfinite(r["scores"]).all() and np.isfinite(r["boxes_cxcywh_px"]).all()
                    for r in results):
             failures.append(("defaults serving", "non-finite output"))
-    paths["serving"] = launch_counts(*kernels)
+    paths["serving"] = launch_counts()
     want = {"rcda": 12 * 3, "rcda_rank1": 0, "mha": 6 * 3, "auction": 0}
     if paths["serving"] != want:
         failures.append(("defaults serving launches", paths["serving"], want))
@@ -1974,7 +1945,7 @@ def defaults_phase(rng, smi, failures):
                 b["sampled_points"], b["sampled_points_valid"] = sampled_points(rng, TB)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(*kernels)
+        reset_launches()
         del match_ev[:]
         step_ms, metrics = [], []
         matching.batched_match = timed_match
@@ -1987,7 +1958,7 @@ def defaults_phase(rng, smi, failures):
                 metrics.append({k: v.item() for k, v in m.items()})
         finally:
             matching.batched_match = solve
-        paths[name] = launch_counts(*kernels)
+        paths[name] = launch_counts()
         per_step = cfg.dec_layers if cfg.aux_loss else 1  # one matching per output
         want = {"rcda": 12 * n_steps, "rcda_rank1": 0, "mha": 6 * n_steps,
                 "auction": per_step * n_steps}
@@ -2065,14 +2036,13 @@ def longtail_phase(g, smi, failures, out_dir):
     from countdetr_tpu_torch.data.batching import Batcher
     from countdetr_tpu_torch.data.synthetic import make_synthetic_fscd147
     from countdetr_tpu_torch.models.anchor_detr import CountingDetr, build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.ops.kernels import mha_kernel
     from countdetr_tpu_torch.serve import Predictor, pack_requests
     from countdetr_tpu_torch.train.engine import generate_pseudo_labels, point_tiers
     from countdetr_tpu_torch.train.train_step import Trainer
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(9)
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rec = {"phase": "longtail", "configs": LONGTAIL}
     paths = {}
 
@@ -2082,7 +2052,7 @@ def longtail_phase(g, smi, failures, out_dir):
         return w
 
     def check_launches(path, expected):
-        paths[path] = launch_counts(*kernels)
+        paths[path] = launch_counts()
         if paths[path] != expected:
             failures.append(("longtail launches", path, paths[path], expected))
         return {"launches": paths[path], "launches_expected": expected}
@@ -2138,7 +2108,7 @@ def longtail_phase(g, smi, failures, out_dir):
     batches = [make_packed_batch(rng, [(S, S)] * SB) for _ in range(3)]
     pred.predict(batches[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
-    reset_launches(*kernels)
+    reset_launches()
     t = time.perf_counter()
     results = [r for reqs in batches for r in pred.predict(reqs)]
     wall = time.perf_counter() - t
@@ -2172,7 +2142,7 @@ def longtail_phase(g, smi, failures, out_dir):
                   if p.requires_grad}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(*kernels)
+        reset_launches()
         step_ms, losses = [], []
         for key in plan:
             t = time.perf_counter()
@@ -2218,7 +2188,7 @@ def longtail_phase(g, smi, failures, out_dir):
         path = os.path.join(out_tmp, f"pseudo_{v}.json")
         generate_pseudo_labels(model, ds, path, **kw)  # warm-up
         torch.cuda.synchronize()
-        reset_launches(*kernels)
+        reset_launches()
         t = time.perf_counter()
         generate_pseudo_labels(model, ds, path, **kw)
         torch.cuda.synchronize()
@@ -2248,7 +2218,7 @@ def longtail_phase(g, smi, failures, out_dir):
     reqs = make_packed_batch(rng, [(S, S), padded])
     pred.predict(reqs)  # warm-up
     torch.cuda.synchronize()
-    reset_launches(*kernels)
+    reset_launches()
     results = pred.predict(reqs)
     r = check_launches("serving_C", want(LONGTAIL_PER_FORWARD["C"], 1))
     if not all(np.isfinite(x["scores"]).all() for x in results):
@@ -2301,7 +2271,7 @@ def longtail_phase(g, smi, failures, out_dir):
                 args = cli.get_args_parser().parse_args(
                     ["--data_path", root, "--output_dir", out] + CLI_FLAGS + argv + extra)
                 torch.cuda.synchronize()
-                reset_launches(*kernels)
+                reset_launches()
                 forwards[0] = 0
                 t = time.perf_counter()
                 log = os.path.join(logs, f"{name}_{mode.strip('-')}.txt")
@@ -2493,11 +2463,10 @@ def ddp_rank(rank, world, store, spec, out_path):
                           device=mesh.local_device(dev), state_dict=torch.load(spec["weights"]),
                           distributed=True)
         res.update(backend=dist.get_backend(), device=str(trainer.device))
-        kernels = (rcda_kernel, mha_kernel, auction_kernel)
         matches = []
         solve, matching.batched_match = recording_matcher(
             matches, torch.load(spec["replay"]), slice(rank * bs, (rank + 1) * bs))
-        reset_launches(*kernels)
+        reset_launches()
         metrics, step_ms = [], []
         for seed, T in spec["plan"]:
             g = ddp_global_batch(seed, T, size, world * bs)
@@ -2509,7 +2478,7 @@ def ddp_rank(rank, world, store, spec, out_path):
             step_ms.append((time.perf_counter() - t) * 1e3)
             metrics.append({k: v.item() for k, v in m.items()})
         matching.batched_match = solve
-        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(*kernels),
+        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(),
                    matches=matches)
         res["model"] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()} \
             if rank == 0 else None
@@ -2525,12 +2494,12 @@ def ddp_rank(rank, world, store, spec, out_path):
             return out
 
         trainer.step = logged
-        reset_launches(*kernels)
+        reset_launches()
         t = time.perf_counter()
         stats = engine.train_one_epoch(trainer, batcher, 0, log_every=100)
         _sync(dev)
         res["epoch"] = {"stats": stats, "losses": [float(x) for x in losses],
-                        "launches": launch_counts(*kernels), "bad_steps": int(trainer.bad_steps),
+                        "launches": launch_counts(), "bad_steps": int(trainer.bad_steps),
                         "wall_s": time.perf_counter() - t}
         trainer.step = step
 
@@ -2583,13 +2552,11 @@ def ddp_phase(smi, failures):
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.core import mesh
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train import checkpoints as ckpt
     from countdetr_tpu_torch.train.train_step import Trainer, prepare_stage2_batch, stage2_loss
     from countdetr_tpu_torch.utils import xprof
 
     t_phase = time.perf_counter()
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     work = tempfile.mkdtemp(prefix="ddp_")
     rec = {"phase": "ddp", "world": DDP_WORLD, "batch_per_rank": DDP_BATCH,
            "bucket": [DDP_SIZE, DDP_SIZE], "targets_per_step": [T for _, T in DDP_PLAN],
@@ -2604,7 +2571,7 @@ def ddp_phase(smi, failures):
         torch.save({k: v.detach().cpu() for k, v in single.model.state_dict().items()}, weights)
         single_matches = []
         solve, matching.batched_match = recording_matcher(single_matches)
-        reset_launches(*kernels)
+        reset_launches()
         one, one_ms = [], []
         try:
             for seed, T in DDP_PLAN:
@@ -2616,7 +2583,7 @@ def ddp_phase(smi, failures):
                 one.append({k: v.item() for k, v in m.items()})
         finally:
             matching.batched_match = solve
-        paths["ddp_one_process"] = launch_counts(*kernels)
+        paths["ddp_one_process"] = launch_counts()
         torch.save(single_matches, os.path.join(work, "matches.pt"))
         one_model = {k: v.detach().cpu() for k, v in single.model.state_dict().items()}
         trainable = {n for n, p in single.model.named_parameters() if p.requires_grad}
@@ -2782,10 +2749,8 @@ def world1_overhead(smi, failures, dist, mesh, xprof, work):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train.train_step import Trainer
 
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     cfg = stage2_config(**DDP_MODEL, compute_dtype="bfloat16")
     bare = Trainer(cfg, TrainConfig(), device=DDP_DEVICE, seed=0)
     ddp = Trainer(cfg, TrainConfig(), device=DDP_DEVICE, state_dict=bare.model.state_dict(),
@@ -2807,12 +2772,12 @@ def world1_overhead(smi, failures, dist, mesh, xprof, work):
             out.append((time.perf_counter() - t) * 1e3)
         return out
 
-    reset_launches(*kernels)
+    reset_launches()
     turns = {"bare": [], "ddp": []}
     order = ("bare", "ddp", "ddp", "bare")
     for name in order:
         turns[name] += timed(bare if name == "bare" else ddp)
-    launches = launch_counts(*kernels)
+    launches = launch_counts()
     n = 4 * len(order)
     want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n}
     if launches != want:
@@ -2870,10 +2835,8 @@ def remat_check(failures, prepare_stage2_batch, stage2_loss):
     steps with each, their time, peak memory and launches."""
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.train.train_step import Trainer
 
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rng = np.random.default_rng(31)
     batch = train_batch(rng, DDP_BATCH, DDP_SIZE, DDP_T[0], n_valid_first=40)
     tcfg = TrainConfig()
@@ -2907,14 +2870,14 @@ def remat_check(failures, prepare_stage2_batch, stage2_loss):
         tr.step(batch)  # warm-up
         _sync(DDP_DEVICE)
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(*kernels)
+        reset_launches()
         ms = []
         for _ in range(REMAT_STEPS):
             t = time.perf_counter()
             tr.step(batch)
             _sync(DDP_DEVICE)
             ms.append((time.perf_counter() - t) * 1e3)
-        counts = launch_counts(*kernels)
+        counts = launch_counts()
         s = steps.setdefault("on" if remat else "off", {"step_ms": [], "peak_memory_gb": []})
         s["step_ms"] += ms
         s["peak_memory_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
@@ -2995,11 +2958,10 @@ def tp_rank(rank, world, store, spec, out_path):
                                       for a in spec["forward"]))
             res["forward"] = {k: out[k].cpu() for k in ("pred_logits", "pred_boxes", "pred_vars")}
             trainer.model.train()
-        kernels = (rcda_kernel, mha_kernel, auction_kernel)
         matches = []
         solve, matching.batched_match = recording_matcher(matches, torch.load(spec["replay"]),
                                                           rows)
-        reset_launches(*kernels)
+        reset_launches()
         metrics, step_ms = [], []
         for seed, T in spec["plan"]:
             g = ddp_global_batch(seed, T, size, spec["batch"])
@@ -3010,7 +2972,7 @@ def tp_rank(rank, world, store, spec, out_path):
             step_ms.append((time.perf_counter() - t) * 1e3)
             metrics.append({k: v.item() for k, v in out.items()})
         matching.batched_match = solve
-        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(*kernels),
+        res.update(metrics=metrics, step_ms=step_ms, launches=launch_counts(),
                    matches=matches)
         res["replicated"] = state_digest({n: p for n, p in trainer.model.named_parameters()
                                           if getattr(p, "tp_dim", None) is None})
@@ -3122,13 +3084,11 @@ def tp_phase(g, smi, failures):
     each path and (d)'s cases."""
     from countdetr_tpu_torch.config import TrainConfig, stage2_config
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
     from countdetr_tpu_torch.serve import pack_requests
     from countdetr_tpu_torch.train import checkpoints as ckpt
     from countdetr_tpu_torch.train.train_step import Trainer
 
     t_phase = time.perf_counter()
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
     rec = {"phase": "tp", "meshes": TP_MESHES, "global_batch": TP_BATCH,
            "bucket": [DDP_SIZE, DDP_SIZE], "targets_per_step": [T for _, T in TP_PLAN],
            "tol": DDP_TOL, "forward_tol": TP_FORWARD_TOL}
@@ -3159,7 +3119,7 @@ def tp_phase(g, smi, failures):
         single.model.train()
         single_matches, one, one_ms, one_models = [], [], [], {}
         solve, matching.batched_match = recording_matcher(single_matches)
-        reset_launches(*kernels)
+        reset_launches()
         try:
             for i, (seed, T) in enumerate(TP_PLAN):
                 _sync(DDP_DEVICE)
@@ -3173,7 +3133,7 @@ def tp_phase(g, smi, failures):
                                          for k, v in single.model.state_dict().items()}
         finally:
             matching.batched_match = solve
-        paths["tp_one_process"] = launch_counts(*kernels)
+        paths["tp_one_process"] = launch_counts()
         torch.save(single_matches, os.path.join(work, "matches.pt"))
         trainable = {n for n, p in single.model.named_parameters() if p.requires_grad}
         del single, out
@@ -3646,8 +3606,7 @@ def main(argv=None) -> int:
                                        for _ in range(7)] + [(592, 592)]) for _ in range(3)]
     pred.predict(batches[0])  # warm-up, outside the counted run
     torch.cuda.synchronize()
-    kernels = (rcda_kernel, mha_kernel, auction_kernel)
-    reset_launches(*kernels)
+    reset_launches()
     counts, latencies_ms = [], []
     for reqs in batches:
         t = time.perf_counter()
@@ -3658,7 +3617,7 @@ def main(argv=None) -> int:
             if not (np.isfinite(r["boxes_cxcywh_px"]).all() and np.isfinite(r["scores"]).all()
                     and np.isfinite(r["threshold"])):
                 failures.append(("serving", "non-finite output"))
-    launches = launch_counts(*kernels)
+    launches = launch_counts()
     want = {"rcda": 12 * len(batches), "rcda_rank1": 0, "mha": 6 * len(batches), "auction": 0}
     if launches != want:
         failures.append(("launches", launches, want))

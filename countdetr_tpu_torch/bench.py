@@ -79,6 +79,7 @@ import torch
 from countdetr_tpu_torch.config import ModelConfig, stage2_config
 from countdetr_tpu_torch.data.batching import pack_space_to_depth
 from countdetr_tpu_torch.models.anchor_detr import build_model, resolve_device
+from countdetr_tpu_torch.utils.trace import launch_counts, reset_launches
 
 METRIC = "images/sec/chip at 600px eval (stage-2 forward)"
 UNIT = "img/s/chip"
@@ -187,21 +188,6 @@ def profiled_loop(model, inputs, n: int, dev: torch.device) -> dict:
             "busy_s": xprof.range_seconds(events, RANGE),
             "annotation_s": xprof.annotation_seconds(events, RANGE),
             "wall_s": wall, "parse_s": time.perf_counter() - t1}
-
-
-def launch_counts() -> dict:
-    """The kernel wrappers' counters."""
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
-
-    return {"rcda": rcda_kernel.launches, "rcda_rank1": rcda_kernel.rank1_launches,
-            "mha": mha_kernel.launches, "auction": auction_kernel.launches}
-
-
-def reset_launches():
-    from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
-
-    rcda_kernel.launches = rcda_kernel.rank1_launches = 0
-    mha_kernel.launches = auction_kernel.launches = 0
 
 
 def main(env: Mapping[str, str] = os.environ, model_cfg: Optional[ModelConfig] = None,

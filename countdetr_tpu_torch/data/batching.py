@@ -44,17 +44,24 @@ def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return out.astype(img.dtype)
 
 
+def fit_to_bucket(h: int, w: int, bucket: Tuple[int, int]) -> Tuple[int, int]:
+    """The (h, w) an image of h x w keeps in the bucket: its own, or, larger
+    than the bucket, downscaled to fit with its aspect ratio."""
+    H, W = bucket
+    if h > H or w > W:
+        scale = min(H / h, W / w)
+        return max(1, int(h * scale)), max(1, int(w * scale))
+    return h, w
+
+
 def pad_to_bucket(img: np.ndarray, bucket: Tuple[int, int]):
     """Zero-pad an HWC image to the bucket; returns (padded, pad_mask) with
     pad_mask True on padding. An image larger than the bucket is downscaled
-    to fit (never cropped), keeping its aspect ratio."""
+    to fit (``fit_to_bucket``; never cropped), keeping its aspect ratio."""
     H, W = bucket
-    h, w = img.shape[:2]
-    if h > H or w > W:
-        scale = min(H / h, W / w)
-        nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
-        img = _resize_bilinear(img, nh, nw)
-        h, w = img.shape[:2]
+    h, w = fit_to_bucket(*img.shape[:2], bucket)
+    if (h, w) != img.shape[:2]:
+        img = _resize_bilinear(img, h, w)
     out = np.zeros((H, W, img.shape[2]), dtype=img.dtype)
     out[:h, :w] = img
     mask = np.ones((H, W), dtype=bool)

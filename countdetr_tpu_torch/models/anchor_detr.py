@@ -51,6 +51,7 @@ from countdetr_tpu_torch.models.segmentation import (
 )
 from countdetr_tpu_torch.models.transformer import Transformer, init_transformer_
 from countdetr_tpu_torch.ops.posemb import grid_reference_points
+from countdetr_tpu_torch.utils import trace
 
 IMNET_MEAN = (0.485, 0.456, 0.406)
 IMNET_STD = (0.229, 0.224, 0.225)
@@ -222,14 +223,15 @@ class CountingDetr(nn.Module):
     def forward(self, images, pad_mask, *prior, generator: Optional[torch.Generator] = None,
                 aux_outputs: Optional[bool] = None, masks: bool = True):
         g = generator if self.training else None
-        if images.dtype == torch.uint8:
-            images = normalize_uint8(images)
-            # raw pads are 0, which normalizes to -mean/std: re-zero them so
-            # the stem sees the same zeros as the host-normalized pipe
-            packed = images.shape[-1] == 12
-            pm = pack_mask_s2d(pad_mask) if packed else pad_mask[..., None]
-            images = images.masked_fill(pm, 0.0)
-        feats = self.backbone["body"](images, pad_mask)
+        with trace.span("model.backbone"):
+            if images.dtype == torch.uint8:
+                images = normalize_uint8(images)
+                # raw pads are 0, which normalizes to -mean/std: re-zero them so
+                # the stem sees the same zeros as the host-normalized pipe
+                packed = images.shape[-1] == 12
+                pm = pack_mask_s2d(pad_mask) if packed else pad_mask[..., None]
+                images = images.masked_fill(pm, 0.0)
+            feats = self.backbone["body"](images, pad_mask)
         feats = feats if isinstance(feats, tuple) else (feats,)
         feat = feats[-1]
         h, w = feat.shape[1], feat.shape[2]

@@ -4,9 +4,11 @@
 launches the kernel in ``csrc/auction.cu`` (the counterpart of the JAX
 package's Pallas ``auction_assign``); on a CPU tensor it runs
 ``auction_plain``. There is no fallback between the two: a CUDA call that
-the kernel cannot take raises. The kernel runs each image on a cluster of
-C thread blocks; ``cluster_plan`` picks C and whether the image's benefit
-rows stay resident in the cluster's shared memory or stream from L2.
+the kernel cannot take raises. Each call is a ``core.auction`` span and each
+launch counts ``launch.auction`` (``utils/trace.py``). The kernel runs
+each image on a cluster of C thread blocks; ``cluster_plan`` picks C and
+whether the image's benefit rows stay resident in the cluster's shared
+memory or stream from L2.
 
 A batched Jacobi (all bidders at once) forward auction, one problem per
 image (countdetr_tpu/ops/matching.py::_auction):
@@ -29,6 +31,7 @@ import ctypes
 import torch
 
 from countdetr_tpu_torch.ops.kernels import _build
+from countdetr_tpu_torch.utils import trace
 
 NEG_INF = -1e30
 SCALE_START = 512.0
@@ -40,9 +43,6 @@ MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # kernel sets the non-portable cluster attribute for it.
 CLUSTER = 16
 MAX_CLUSTER = 16
-
-# Kernel launches since the counter was last reset (by whoever reads it).
-launches = 0
 
 
 def auction_plain(benefit, active, eps, max_iters, scaling=False, with_stats=False):
@@ -189,7 +189,11 @@ def auction_assign(benefit, active, eps, max_iters, scaling=False, with_stats=Fa
     """The auction: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``auction_plain``;
     ``cluster`` overrides the plan's blocks per image (measurements)."""
-    global launches
+    with trace.span("core.auction", lambda: "x".join(map(str, benefit.shape))):
+        return _auction_forward(benefit, active, eps, max_iters, scaling, with_stats, cluster)
+
+
+def _auction_forward(benefit, active, eps, max_iters, scaling, with_stats, cluster):
     if benefit.device.type == "cpu":
         return auction_plain(benefit, active, eps, max_iters, scaling, with_stats)
     if benefit.device.type != "cuda":
@@ -218,7 +222,7 @@ def auction_assign(benefit, active, eps, max_iters, scaling=False, with_stats=Fa
         )
         if err != 0:
             raise RuntimeError(f"auction kernel launch failed: CUDA error {err}")
-        launches += 1
+        trace.count("launch.auction")
     else:
         assigned.copy_(torch.where(active, -1, 0))
     assigned = assigned.long()

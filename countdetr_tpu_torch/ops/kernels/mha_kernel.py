@@ -7,7 +7,8 @@ and the level layers (one batch row a pixel, 3 keys). On a CUDA tensor
 it launches the kernel in ``csrc/mha.cu`` (the counterpart of the JAX
 package's Pallas ``fused_mha``); on a CPU tensor it runs ``mha_core_plain``.
 There is no fallback between the two: a CUDA call that the kernel cannot
-take raises.
+take raises. Each call is a ``core.mha`` span and each launch counts
+``launch.mha`` (``utils/trace.py``).
 
 q (B, L, E) pre-scaled by d**-0.5, k and v (B, S, E) in one dtype, bias
 (B, S) float32 additive (0 valid / -1e30 padded). Returns (B, L, E) in q's
@@ -38,12 +39,10 @@ import ctypes
 import torch
 
 from countdetr_tpu_torch.ops.kernels import _build
+from countdetr_tpu_torch.utils import trace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
-
-# Kernel launches since the counter was last reset (by whoever reads it).
-launches = 0
 
 
 def mha_core_plain(q, k, v, bias, num_heads):
@@ -98,7 +97,6 @@ def _check(q, k, v, bias, num_heads):
 
 def _mha_forward(q, k, v, bias, num_heads):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    global launches
     if q.device.type == "cpu":
         return mha_core_plain(q, k, v, bias, num_heads)
     if q.device.type != "cuda":
@@ -115,7 +113,7 @@ def _mha_forward(q, k, v, bias, num_heads):
     )
     if err != 0:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("launch.mha")
     return out
 
 
@@ -144,6 +142,8 @@ class MHACore(torch.autograd.Function):
 def mha_core(q, k, v, bias, num_heads):
     """The attention core: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; differentiable in q, k and v."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return MHACore.apply(q, k, v, bias, num_heads)
-    return _mha_forward(q, k, v, bias, num_heads)
+    with trace.span("core.mha", lambda: f"B={q.shape[0]} L={q.shape[1]} S={k.shape[1]} "
+                                        f"{str(q.dtype).removeprefix('torch.')}"):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return MHACore.apply(q, k, v, bias, num_heads)
+        return _mha_forward(q, k, v, bias, num_heads)

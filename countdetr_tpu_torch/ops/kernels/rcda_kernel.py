@@ -16,7 +16,10 @@ up to the order of an f32 sum. So every float32 call, of either variant,
 takes ``csrc/rcda.cu``: three TF32 products per product on the tensor cores
 (3xTF32) where ``f32_route`` allows, else its CUDA-core kernel. A bfloat16
 call takes its variant's kernel. There is no fallback between kernels: a
-CUDA call that the chosen kernel cannot take raises.
+CUDA call that the chosen kernel cannot take raises. Each call is a
+``core.rcda`` (``core.rcda_rank1``) span and each launch counts
+``launch.rcda`` (``launch.rcda_rank1``) by the variant asked for, whichever
+source ran (``utils/trace.py``).
 
 Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   q_row, q_col : (B, L, E), pre-scaled by d**-0.5
@@ -41,6 +44,7 @@ import torch
 
 from countdetr_tpu_torch.config import RCDA_VARIANTS
 from countdetr_tpu_torch.ops.kernels import _build
+from countdetr_tpu_torch.utils import trace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 F32_TENSOR_CORES = 2  # csrc/rcda.cu's code for float32 on the tensor cores
@@ -48,11 +52,6 @@ HEAD_DIMS = (16, 32, 64)
 # H, W limit of the tensor-core paths (a_row held in registers): the bf16
 # kernels of both variants and rcda.cu's 3xTF32 kernel
 MAX_AXIS = 64
-
-# Kernel launches since the counter was last reset (by whoever reads it),
-# counted by variant, whichever source ran: v3 calls, rank-1 calls.
-launches = 0
-rank1_launches = 0
 
 
 def rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
@@ -179,7 +178,6 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
                   variant="v3"):
     """``kernel_route``'s kernel for CUDA tensors, the variant's plain
     version for CPU tensors."""
-    global launches, rank1_launches
     if variant not in RCDA_VARIANTS:
         raise ValueError(f"rcda: variant must be one of {RCDA_VARIANTS}, got {variant!r}")
     if q_row.device.type == "cpu":
@@ -204,10 +202,7 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
     )
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
-    if variant == "rank1":
-        rank1_launches += 1
-    else:
-        launches += 1
+    trace.count("launch.rcda_rank1" if variant == "rank1" else "launch.rcda")
     return out
 
 
@@ -241,6 +236,14 @@ def rcda_core(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, vari
     plain version for CPU tensors; differentiable in q_row, q_col, k_row,
     k_col and v."""
     args = (q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, variant)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args[:5]):
-        return RCDACore.apply(*args)
-    return _rcda_forward(*args)
+    name = "core.rcda_rank1" if variant == "rank1" else "core.rcda"
+    with trace.span(name, lambda: _shape(q_row, v)):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args[:5]):
+            return RCDACore.apply(*args)
+        return _rcda_forward(*args)
+
+
+def _shape(q_row, v) -> str:
+    """A span's shape: 'B=32 L=1369 37x37 float32'."""
+    (B, L, _), (H, W) = q_row.shape, v.shape[1:3]
+    return f"B={B} L={L} {H}x{W} {str(q_row.dtype).removeprefix('torch.')}"

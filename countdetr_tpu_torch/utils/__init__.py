@@ -1,1 +1,1 @@
-"""Metric logging and visualization."""
+"""Metric logging, visualization, trace readers, and the port's spans and counters."""

@@ -24,6 +24,7 @@ from countdetr_tpu_torch.config import TrainConfig
 from countdetr_tpu_torch.ops.kernels import _build, auction_kernel, mha_kernel, rcda_kernel
 from countdetr_tpu_torch.serve import Predictor
 from countdetr_tpu_torch.train.train_step import Trainer
+from countdetr_tpu_torch.utils import trace
 from countdetr_tpu_torch.weights import params_from_jax
 from test_torch_model import jax_model_and_params, tiny_configs
 
@@ -128,10 +129,7 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
 
     monkeypatch.setattr(_build, "build", no_build)
     monkeypatch.setattr(_build, "load", no_build)
-    monkeypatch.setattr(rcda_kernel, "launches", 0)
-    monkeypatch.setattr(rcda_kernel, "rank1_launches", 0)
-    monkeypatch.setattr(mha_kernel, "launches", 0)
-    monkeypatch.setattr(auction_kernel, "launches", 0)
+    trace.reset_launches()
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     args = (f(2, 12, 32), f(2, 12, 32), f(2, 5, 32), f(2, 4, 32), f(2, 4, 5, 32),
             torch.zeros(2, 5), torch.zeros(2, 4))
@@ -148,9 +146,7 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     torch.testing.assert_close(auction_kernel.auction_assign(benefit, active, eps, 100),
                                auction_kernel.auction_plain(benefit, active, eps, 100),
                                rtol=0, atol=0)
-    assert rcda_kernel.launches == 0 and rcda_kernel.rank1_launches == 0
-    assert mha_kernel.launches == 0
-    assert auction_kernel.launches == 0
+    assert trace.launch_counts() == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0}
     with pytest.raises(ValueError):
         auction_kernel.auction_assign(benefit.to("meta"), active.to("meta"), eps.to("meta"), 100)
     with pytest.raises(ValueError):
