@@ -6,7 +6,8 @@
 Phases, each printed as one JSON line:
   device    the card (nvidia-smi name and power limit), its SM count and
             maximum SM clock (the exponential rate of the bound), the kernel
-            build, one nvcc per CUDA source (rcda, rcda_rank1, mha, auction),
+            build, one nvcc per CUDA source (rcda, rcda_rank1, mha, auction,
+            pack),
             all started together, each kernel's registers, spills and
             static shared memory and the compiler's warnings from ptxas (the
             build logs), the RCDA kernels' dynamic shared memory, and the
@@ -47,7 +48,12 @@ Phases, each printed as one JSON line:
             ratio), the least time the card
             could take (bytes, operations at 989 TFLOP/s bf16 or 495 / 3
             f32 (3xTF32), or softmax exponentials), and the
-            host scipy LAP's time for the auction; then the attention kernels
+            host scipy LAP's time for the auction; serving's pack kernel
+            against the host pack, bit for bit, on the serve_b32 pool's
+            sizes and odd ones, through a Predictor's pinned staging too,
+            timed at B=32 of the pool's mean size beside its bytes bound,
+            the host pack it replaces and the staging (``pack_cases``);
+            then the attention kernels
             at a few other shapes (ragged tiles, head dims 16 and 64, long
             keys, the float32 MHA at S=1700 and 5600), untimed;
   parity    the full-width stage-2 model (ResNet-50-DC5, 6+6 layers, 576
@@ -55,7 +61,8 @@ Phases, each printed as one JSON line:
             weights on the CPU (plain versions), one padded 592x592 image;
   serving   a bfloat16 Predictor answers 3 batches of 8 requests of mixed
             sizes; launch counters are zeroed just before and read just
-            after (12 RCDA and 6 MHA launches per forward); then B=32
+            after (12 RCDA and 6 MHA launches per forward, one pack
+            launch a call); then B=32
             all-valid 592x592 forwards are timed and profiled;
   bench     the serving bench entry points as a user runs them, each a
             `python -m` process: countdetr_tpu_torch.bench at its defaults
@@ -220,7 +227,8 @@ stdout.
 
     python3 chip_smoke.py --only auction rank1   # bring-up: build, then
                                                  # only these kernels' cases
-                                                 # (rcda, rank1, mha, auction;
+                                                 # (rcda, rank1, mha, auction,
+                                                 # pack;
                                                  # rcda and mha add their
                                                  # float32 rows of PERF.md,
                                                  # rank1 its tp-rank rows;
@@ -815,7 +823,7 @@ def grad_phase(rng, failures):
     total_g.backward()
     torch.cuda.synchronize()
     launches = launch_counts()
-    want_launches = {"rcda": 4, "rcda_rank1": 0, "mha": 2, "auction": 1}
+    want_launches = {"rcda": 4, "rcda_rank1": 0, "mha": 2, "auction": 1, "pack": 0}
     if launches != want_launches:
         failures.append(("grad launches", launches, want_launches))
     cpu_match = MatchedTargets(*(None if x is None else x.cpu() for x in match))
@@ -893,7 +901,7 @@ def train_phase(rng, smi, failures):
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want_launches = {"rcda": 12 * len(plan), "rcda_rank1": 0, "mha": 6 * len(plan),
-                     "auction": len(plan)}
+                     "auction": len(plan), "pack": 0}
     if launches != want_launches:
         failures.append(("train launches", launches, want_launches))
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
@@ -994,7 +1002,7 @@ def stage1_parity_phase(rng, failures):
             torch.cuda.synchronize()
             launches[variant] = launch_counts()
             out_cpu = cpu_model(*(torch.from_numpy(batch[k]) for k in keys))
-        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6, "auction": 0}
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6, "auction": 0, "pack": 0}
         want["rcda" if variant == "v3" else "rcda_rank1"] = 12
         if launches[variant] != want:
             failures.append(("stage1 parity launches", variant, launches[variant], want))
@@ -1035,7 +1043,7 @@ def stage1_train_phase(rng, smi, failures):
         step_ms.append((time.perf_counter() - t) * 1e3)
         metrics.append({k: v.item() for k, v in m.items()})
     launches = launch_counts()
-    want = {"rcda": 12 * 6, "rcda_rank1": 0, "mha": 6 * 6, "auction": 0}
+    want = {"rcda": 12 * 6, "rcda_rank1": 0, "mha": 6 * 6, "auction": 0, "pack": 0}
     if launches != want:
         failures.append(("stage1 train launches", launches, want))
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
@@ -1104,7 +1112,8 @@ def pseudo_label_f32(ds, state, kw, n_points, n_batches, out_dir, failures):
         seconds = time.perf_counter() - t
         launches = launch_counts()
         del model
-        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0}
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0,
+                "pack": 0}
         want["rcda" if v == "v3" else "rcda_rank1"] = 12 * n_batches
         if launches != want:
             failures.append(("pseudo_label f32 launches", v, launches, want))
@@ -1163,7 +1172,8 @@ def pseudo_label_phase(rng, smi, failures):
     jsons, launches_by_variant = {}, {}
     for v, r in rec.items():
         key = "rcda" if v == "v3" else "rcda_rank1"
-        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0}
+        want = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n_batches, "auction": 0,
+                "pack": 0}
         want[key] = 12 * n_batches
         if any(got != want for got in r["launches"]):
             failures.append(("pseudo_label launches", v, r["launches"], want))
@@ -1414,7 +1424,8 @@ def engine_phase(smi, failures, out_dir):
 
     def train_want(n, variant="v3", auction=True):
         key = "rcda" if variant == "v3" else "rcda_rank1"
-        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if auction else 0}
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if auction else 0,
+             "pack": 0}
         w[key] = 12 * n
         return w
 
@@ -1607,7 +1618,8 @@ def cli_phase(smi, failures, out_dir):
         return stats
 
     def want(n, variant="v3", matching=False):
-        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if matching else 0}
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 6 * n, "auction": n if matching else 0,
+             "pack": 0}
         w["rcda" if variant == "v3" else "rcda_rank1"] = 12 * n
         return w
 
@@ -1803,7 +1815,7 @@ def cli_phase(smi, failures, out_dir):
                 "train": lambda n: want(n, matching=True),
                 "e2e": lambda n: want(n, matching=True),
                 "match": lambda n: {"rcda": 0, "rcda_rank1": 0, "mha": 0,
-                                    "auction": 3 * (iters + 1)},
+                                    "auction": 3 * (iters + 1), "pack": 0},
                 "flops": lambda n: want(0),  # counted on the CPU, plain path
             }[mode]
             line = run(f"bench_{mode}", lambda: bench.main(args), want_of)
@@ -1902,7 +1914,7 @@ def defaults_phase(rng, smi, failures):
                    for r in results):
             failures.append(("defaults serving", "non-finite output"))
     paths["serving"] = launch_counts()
-    want = {"rcda": 12 * 3, "rcda_rank1": 0, "mha": 6 * 3, "auction": 0}
+    want = {"rcda": 12 * 3, "rcda_rank1": 0, "mha": 6 * 3, "auction": 0, "pack": 3}
     if paths["serving"] != want:
         failures.append(("defaults serving launches", paths["serving"], want))
     images, masks, rects, _ = pack_requests(batches[0], (S, S))
@@ -1961,7 +1973,7 @@ def defaults_phase(rng, smi, failures):
         paths[name] = launch_counts()
         per_step = cfg.dec_layers if cfg.aux_loss else 1  # one matching per output
         want = {"rcda": 12 * n_steps, "rcda_rank1": 0, "mha": 6 * n_steps,
-                "auction": per_step * n_steps}
+                "auction": per_step * n_steps, "pack": 0}
         if paths[name] != want:
             failures.append((f"defaults {name} launches", paths[name], want))
         if not all(np.isfinite(v) for m in metrics for v in m.values()):
@@ -2046,8 +2058,8 @@ def longtail_phase(g, smi, failures, out_dir):
     rec = {"phase": "longtail", "configs": LONGTAIL}
     paths = {}
 
-    def want(per_forward, n, auction=0):
-        w = {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": auction}
+    def want(per_forward, n, auction=0, predict_calls=0):
+        w = {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": auction, "pack": predict_calls}
         w.update({k: v * n for k, v in per_forward.items()})
         return w
 
@@ -2112,7 +2124,8 @@ def longtail_phase(g, smi, failures, out_dir):
     t = time.perf_counter()
     results = [r for reqs in batches for r in pred.predict(reqs)]
     wall = time.perf_counter() - t
-    rec["serving_A"] = check_launches("serving_A", want(LONGTAIL_PER_FORWARD["A"], 3))
+    rec["serving_A"] = check_launches("serving_A",
+                                      want(LONGTAIL_PER_FORWARD["A"], 3, predict_calls=3))
     if not all(np.isfinite(r["scores"]).all() and np.isfinite(r["boxes_cxcywh_px"]).all()
                for r in results):
         failures.append(("longtail serving A", "non-finite output"))
@@ -2220,7 +2233,7 @@ def longtail_phase(g, smi, failures, out_dir):
     torch.cuda.synchronize()
     reset_launches()
     results = pred.predict(reqs)
-    r = check_launches("serving_C", want(LONGTAIL_PER_FORWARD["C"], 1))
+    r = check_launches("serving_C", want(LONGTAIL_PER_FORWARD["C"], 1, predict_calls=1))
     if not all(np.isfinite(x["scores"]).all() for x in results):
         failures.append(("longtail mask serving", "non-finite scores"))
     images, masks, rects, _ = pack_requests(reqs, (S, S))
@@ -2722,7 +2735,7 @@ def world_rec(rec, ranks, one, one_ms, one_model, trainable, single_matches, fai
     rec["backend"] = [x["backend"] for x in ranks]
     rec["launches_rank"] = [x["launches"] for x in ranks]
     want = {"rcda": 12 * len(DDP_PLAN), "rcda_rank1": 0, "mha": 6 * len(DDP_PLAN),
-            "auction": len(DDP_PLAN)}
+            "auction": len(DDP_PLAN), "pack": 0}
     for x in ranks:
         if x["launches"] != want:
             failures.append(("ddp launches", x["rank"], x["launches"], want))
@@ -2779,7 +2792,7 @@ def world1_overhead(smi, failures, dist, mesh, xprof, work):
         turns[name] += timed(bare if name == "bare" else ddp)
     launches = launch_counts()
     n = 4 * len(order)
-    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n}
+    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n, "pack": 0}
     if launches != want:
         failures.append(("ddp world-1 launches", launches, want))
     _sync(DDP_DEVICE)
@@ -2895,7 +2908,7 @@ def remat_check(failures, prepare_stage2_batch, stage2_loss):
                                   / max(steps["off"]["device_busy_ms"], 1e-9))
     out["memory_ratio_on_off"] = (max(steps["on"]["peak_memory_gb"])
                                   / max(steps["off"]["peak_memory_gb"]))
-    want_on = {"rcda": 24, "rcda_rank1": 0, "mha": 12, "auction": 1}
+    want_on = {"rcda": 24, "rcda_rank1": 0, "mha": 12, "auction": 1, "pack": 0}
     if steps["on"]["launches_per_step"] != want_on:
         failures.append(("remat launches", steps["on"]["launches_per_step"], want_on))
     return out, launches
@@ -3265,7 +3278,7 @@ def tp_world_rec(w, ranks, shape, one, one_model, trainable, one_forward, failur
         if not all(e <= TP_FORWARD_TOL for e in w["forward_max_abs_err"].values()):
             failures.append((name, "forward", w["forward_max_abs_err"]))
     n = len(one)
-    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n}
+    want = {"rcda": 12 * n, "rcda_rank1": 0, "mha": 6 * n, "auction": n, "pack": 0}
     for x in ranks:
         if x["launches"] != want:
             failures.append((name, "launches", x["rank"], x["launches"], want))
@@ -3275,7 +3288,7 @@ def tp_world_rec(w, ranks, shape, one, one_model, trainable, one_forward, failur
 
 BENCH_RESULT_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
 BENCH_METRIC = "images/sec/chip at 600px eval (stage-2 forward)"
-BENCH_PER_FORWARD = {"rcda": 12, "rcda_rank1": 0, "mha": 6, "auction": 0}
+BENCH_PER_FORWARD = {"rcda": 12, "rcda_rank1": 0, "mha": 6, "auction": 0, "pack": 0}
 # (path, BENCH_* knobs over the bench's defaults: B=32, 592x592, bf16, hi=40,
 # lo=10, 3 pairs, packed, the profiler's estimate)
 BENCH_RUNS = (("bench", {"BENCH_PAIRS": "1"}),
@@ -3387,8 +3400,101 @@ def bench_phase(smi, failures, serving_img_per_s=None):
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     return {name: (rec[name].get("stats") or {}).get(
-        "launches", {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0})
+        "launches", {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0, "pack": 0})
         for name, _ in BENCH_RUNS}
+
+
+# serving's pack kernel: the serve_b32 pool's sides (benchmark/traffic/serve_b32.json)
+# in its 592 bucket, and a batch of the pool's mean size for the timing
+POOL_SIDES = tuple(range(384, 577, 32))
+PACK_BUCKET = (592, 592)
+PACK_MEAN = (480, 480)
+
+
+def pack_cases(pack_kernel, rng):
+    """The pack kernel against the host pack (``pack_requests``), bit for
+    bit: 32 of the serve_b32 pool's sizes, odd sizes (1x1, the bucket's
+    own, one row, one column, odd sides) in 592 and 64x96 buckets, one
+    image; then the same through a float32 ``Predictor``'s staging (pinned
+    buffer, one copy, the kernel) over calls of B=32, 1, 32. Timed at B=32
+    of the pool's mean size: kernel_ms (CUDA events, L2-warm, mean of 20)
+    against its bytes bound, plain_ms the host pack it replaces
+    (``pack_requests``, host clock, mean of 3), plain_torch_ms its plain
+    version on the card, stage_ms the Predictor's staging of the batch on
+    the host."""
+    from countdetr_tpu_torch.config import stage2_config
+    from countdetr_tpu_torch.serve import (Predictor, pack_requests, request_boxes,
+                                           stage_requests, staged_views, staging_layout)
+
+    def staged(reqs, bucket):
+        boxes = request_boxes(reqs)
+        buf = torch.zeros(staging_layout(*boxes.shape[:2], bucket)[2], dtype=torch.uint8)
+        used, _ = stage_requests(buf, reqs, boxes, bucket)
+        dev = buf[:used].cuda()
+        return dev, staged_views(dev, *boxes.shape[:2], bucket)[0], used
+
+    def pool(n):
+        return [(int(h), int(w)) for h, w in rng.choice(POOL_SIDES, (n, 2))]
+
+    odd = [(1, 1), (592, 592), (1, 592), (592, 1), (591, 577), (383, 415), (2, 3)]
+    cases = [("pool B=32", PACK_BUCKET, pool(32)), ("odd", PACK_BUCKET, odd),
+             ("odd 64x96", (64, 96), [(63, 95), (64, 96), (1, 1), (33, 7), (64, 1)]),
+             ("one image", PACK_BUCKET, [(577, 385)])]
+    out = []
+    for name, bucket, sizes in cases:
+        reqs = make_packed_batch(rng, sizes)
+        images, masks, _, _ = pack_requests(reqs, bucket)
+        dev, table, _ = staged(reqs, bucket)
+        reset_launches()
+        got = pack_kernel.pack_images(dev, table, bucket)
+        torch.cuda.synchronize()
+        out.append({"case": name, "bucket": list(bucket), "batch": len(sizes),
+                    "launches": launch_counts()["pack"],
+                    "images_identical": bool(np.array_equal(got[0].cpu().numpy(), images)),
+                    "mask_identical": bool(np.array_equal(got[1].cpu().numpy(), masks))})
+    # the Predictor's path: pinned staging, one non_blocking copy, the kernel
+    pred = Predictor(stage2_config(enc_layers=1, dec_layers=1), device="cuda",
+                     bucket=PACK_BUCKET, seed=0)
+    for name, sizes in (("predictor B=32", pool(32)), ("predictor B=1", [(385, 577)]),
+                        ("predictor B=32 again", pool(31) + [(1, 1)])):
+        reqs = make_packed_batch(rng, sizes)
+        want = pack_requests(reqs, PACK_BUCKET)[:3]
+        reset_launches()
+        got = pred._upload(*pred._stage(reqs)[:2])
+        torch.cuda.synchronize()
+        out.append({"case": name, "bucket": list(PACK_BUCKET), "batch": len(sizes),
+                    "launches": launch_counts()["pack"],
+                    "images_identical": bool(np.array_equal(got[0].cpu().numpy(), want[0])),
+                    "mask_identical": bool(np.array_equal(got[1].cpu().numpy(), want[1])),
+                    "boxes_identical": bool(np.array_equal(got[2].cpu().numpy(), want[2]))})
+    # the time at the pool's mean batch
+    reqs = make_packed_batch(rng, [PACK_MEAN] * 32)
+    dev, table, used = staged(reqs, PACK_BUCKET)
+    B, (H, W) = len(reqs), PACK_BUCKET
+    nbytes = used + B * H * W * 3 + B * H * W  # staged in; packed images and mask out
+    t = time.perf_counter()
+    for _ in range(3):
+        pack_requests(reqs, PACK_BUCKET)
+    plain_ms = (time.perf_counter() - t) / 3 * 1e3
+    t = time.perf_counter()
+    for _ in range(3):
+        pred._stage(reqs)
+    stage_ms = (time.perf_counter() - t) / 3 * 1e3
+    out.append({"case": "timed", "shape": {"B": B, "image": list(PACK_MEAN),
+                                           "bucket": list(PACK_BUCKET)},
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "kernel_ms": cuda_ms(lambda: pack_kernel.pack_images(dev, table, PACK_BUCKET), 20),
+                "plain_torch_ms": cuda_ms(
+                    lambda: pack_kernel.pack_images_plain(dev, table, PACK_BUCKET), 5),
+                "plain_ms": plain_ms, "stage_ms": stage_ms})
+    del pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def pack_ok(c):
+    return c["case"] == "timed" or (c["launches"] == 1 and c["images_identical"]
+                                    and c["mask_identical"] and c.get("boxes_identical", True))
 
 
 def make_packed_batch(rng, sizes):
@@ -3456,7 +3562,8 @@ def ptxas_report(build_dir, names):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", nargs="+", choices=("rcda", "rank1", "mha", "auction") + PHASES,
+    ap.add_argument("--only", nargs="+",
+                    choices=("rcda", "rank1", "mha", "auction", "pack") + PHASES,
                     help="build, then check only these kernels (cases and edge cases), or run "
                          "only these of the engine, cli, defaults and convergence phases, and "
                          "stop")
@@ -3471,7 +3578,8 @@ def main(argv=None) -> int:
     from countdetr_tpu_torch.config import stage2_config
     from countdetr_tpu_torch.models.anchor_detr import build_model
     from countdetr_tpu_torch.ops import matching
-    from countdetr_tpu_torch.ops.kernels import _build, auction_kernel, mha_kernel, rcda_kernel
+    from countdetr_tpu_torch.ops.kernels import (_build, auction_kernel, mha_kernel, pack_kernel,
+                                                 rcda_kernel)
     from countdetr_tpu_torch.serve import Predictor, pack_requests
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3526,7 +3634,7 @@ def main(argv=None) -> int:
         return 0
     if args.only:
         return only_kernels([k for k in args.only if k not in PHASES], g, rcda_kernel,
-                            mha_kernel, auction_kernel, matching)
+                            mha_kernel, auction_kernel, pack_kernel, matching)
     # B=32: the serving throughput batch; B=8 bf16: the train step's
     rcda_cases = [rcda_case(rcda_kernel, g, dt, L) for L in (1369, 576)
                   for dt in (torch.bfloat16, torch.float32)]
@@ -3559,8 +3667,10 @@ def main(argv=None) -> int:
     mha_cases += [mha_case(mha_kernel, g, torch.float32, B=8, L=L) for L in (700, 576)]
     determinism = f32_determinism(rcda_kernel, mha_kernel, g)
     auctions = auction_cases(auction_kernel, matching, np.random.default_rng(1))
+    packs = pack_cases(pack_kernel, np.random.default_rng(2))
     torch.cuda.synchronize()
     failures = [("edge", c) for c in edges if not in_tol(c)]
+    failures += [("pack", c) for c in packs if not pack_ok(c)]
     failures += [("auction", c["case"]) for c in auctions if not c["identical"]]
     failures += [("auction", c["case"], "cluster", x["cluster"]) for c in auctions
                  for x in c["sweep"] if not x["identical"]]
@@ -3576,7 +3686,7 @@ def main(argv=None) -> int:
     failures += [("determinism", c) for c in determinism
                  if not (c["deterministic"] and c["batch_invariant"])]
     emit({"phase": "kernels", "rcda": rcda_cases, "rcda_rank1": rank1_cases, "mha": mha_cases,
-          "auction": auctions, "edge": edges, "determinism": determinism})
+          "auction": auctions, "pack": packs, "edge": edges, "determinism": determinism})
 
     # 3. full-width float32 parity: card (kernels) against CPU (plain)
     cfg32 = stage2_config()
@@ -3618,7 +3728,8 @@ def main(argv=None) -> int:
                     and np.isfinite(r["threshold"])):
                 failures.append(("serving", "non-finite output"))
     launches = launch_counts()
-    want = {"rcda": 12 * len(batches), "rcda_rank1": 0, "mha": 6 * len(batches), "auction": 0}
+    want = {"rcda": 12 * len(batches), "rcda_rank1": 0, "mha": 6 * len(batches), "auction": 0,
+            "pack": len(batches)}
     if launches != want:
         failures.append(("launches", launches, want))
 
@@ -3767,7 +3878,7 @@ def main(argv=None) -> int:
     return 0
 
 
-def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
+def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, pack_kernel, matching):
     """The kernels phase restricted to ``kinds``: the main-path cases and the
     edge cases of those kernels; exit status 0 when all are in tolerance."""
     rec = {"phase": "kernels", "only": kinds}
@@ -3794,6 +3905,8 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
         cases += rec["mha"]
     if "auction" in kinds:
         rec["auction"] = auction_cases(auction_kernel, matching, np.random.default_rng(1))
+    if "pack" in kinds:
+        rec["pack"] = pack_cases(pack_kernel, np.random.default_rng(2))
     rec["edge"] = edge_cases(rcda_kernel, mha_kernel, g, kinds)
     # the learned prior's 900 queries, drawn after the cases above, which
     # keep their draw position (see main; ROADMAP Queue 3)
@@ -3813,6 +3926,7 @@ def only_kernels(kinds, g, rcda_kernel, mha_kernel, auction_kernel, matching):
     bad += [c for c in rec["f32"]["determinism"] if not (c["deterministic"] and c["batch_invariant"])]
     bad += [c for c in rec.get("auction", [])
             if not (c["identical"] and all(x["identical"] for x in c["sweep"]))]
+    bad += [c for c in rec.get("pack", []) if not pack_ok(c)]
     if bad:
         print(f"chip_smoke: FAILED {bad}", file=sys.stderr)
     return 1 if bad else 0

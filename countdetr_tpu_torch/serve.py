@@ -7,12 +7,17 @@ count out. The inference half of countdetr_tpu/train/engine.py
     pred = Predictor(stage2_config(compute_dtype="bfloat16"))  # on "cuda"
     results = pred.predict([(image_uint8_hwc, boxes_3x4_xyxy_normalized)])
 
-Each request is padded into the bucket (pad mask included), the batch is
-space-to-depth packed and run through one forward; each request gets
+A call stages its requests' raw images back to back, with their boxes and a
+table of offsets and sizes, in one buffer of the predictor's (pinned on a
+card; ``stage_requests``), copies the used part to the device in one copy,
+and there pads, masks and space-to-depth packs them in one kernel launch
+(``ops/kernels/pack_kernel.py``); one forward follows. Each request gets
 ``count``, ``threshold``, ``boxes_cxcywh_px`` and ``scores``. A call is one
-``serve.predict`` span around ``serve.pack``, ``serve.h2d``,
-``serve.model``, ``serve.d2h`` and ``serve.count``; ``pack_requests``
-counts ``serve.px_real`` and ``serve.px_bucket`` (``utils/trace.py``). Under the
+``serve.predict`` span around ``serve.pack`` (the staging), ``serve.h2d``
+(the copy and the pack launch), ``serve.model``, ``serve.d2h`` and
+``serve.count``; staging counts ``serve.px_real``, ``serve.px_bucket`` and
+``serve.pack_resized`` (``utils/trace.py``). ``pack_requests`` is the same
+pack on the host, in numpy, for callers of ``Predictor.forward``. Under the
 learned and grid priors a request is (image, boxes); under the sampled and
 defined priors it carries its anchors too, (image, boxes, points (S, 2)
 normalized x, y), padded to the batch's longest with a validity mask.
@@ -26,12 +31,31 @@ import numpy as np
 import torch
 
 from countdetr_tpu_torch.config import ModelConfig
-from countdetr_tpu_torch.data.batching import fit_to_bucket, pack_space_to_depth, pad_to_bucket
+from countdetr_tpu_torch.data.batching import (_resize_bilinear, fit_to_bucket,
+                                               pack_space_to_depth, pad_to_bucket)
 from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting
 from countdetr_tpu_torch.models.anchor_detr import build_model
+from countdetr_tpu_torch.ops.kernels import pack_kernel
 from countdetr_tpu_torch.utils import trace
 
 POINTS_PRIORS = ("defined", "sampled")
+ALIGN = 16  # bytes: every section and image of the staging buffer starts on a multiple
+
+
+def _aligned(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+def _check_image(image: np.ndarray):
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"request image must be uint8 HWC RGB, got "
+                         f"{image.dtype} {image.shape}")
+
+
+def request_boxes(requests: Sequence[Tuple[np.ndarray, ...]]) -> np.ndarray:
+    """The requests' exemplar boxes, (B, K, 4) float32."""
+    return np.stack([np.asarray(boxes, dtype=np.float32).reshape(-1, 4)
+                     for _, boxes, *_ in requests])
 
 
 def pack_requests(requests: Sequence[Tuple[np.ndarray, ...]], bucket: Tuple[int, int]):
@@ -39,20 +63,69 @@ def pack_requests(requests: Sequence[Tuple[np.ndarray, ...]], bucket: Tuple[int,
     ...) requests: (packed uint8 (B, H/2, W/2, 12), pad_mask (B, H, W),
     exemplar boxes (B, K, 4) float32, original (w, h) per request). Counts
     the pixels the images keep (after any downscale) and the buckets'."""
-    images, masks, rects, sizes = [], [], [], []
-    for image, boxes, *_ in requests:
-        if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-            raise ValueError(f"request image must be uint8 HWC RGB, got "
-                             f"{image.dtype} {image.shape}")
+    images, masks, sizes = [], [], []
+    for image, *_ in requests:
+        _check_image(image)
         padded, mask = pad_to_bucket(image, bucket)
         images.append(padded)
         masks.append(mask)
-        rects.append(np.asarray(boxes, dtype=np.float32).reshape(-1, 4))
         sizes.append((image.shape[1], image.shape[0]))
         h, w = fit_to_bucket(*image.shape[:2], bucket)
         trace.count("serve.px_real", h * w)
     trace.count("serve.px_bucket", len(requests) * bucket[0] * bucket[1])
-    return pack_space_to_depth(np.stack(images)), np.stack(masks), np.stack(rects), sizes
+    return pack_space_to_depth(np.stack(images)), np.stack(masks), request_boxes(requests), sizes
+
+
+def staging_layout(B: int, K: int, bucket: Tuple[int, int]) -> Tuple[int, int, int]:
+    """(byte offset of the boxes, of the first image, the most bytes any B
+    requests of K boxes take) in a staging buffer: the (B, 3) int64 table
+    at 0, the (B, K, 4) float32 boxes, then each image, every one at an
+    ALIGN-byte offset."""
+    boxes_at = _aligned(24 * B)
+    images_at = boxes_at + 16 * B * K
+    return boxes_at, images_at, images_at + B * _aligned(bucket[0] * bucket[1] * 3)
+
+
+def staged_views(buf: torch.Tensor, B: int, K: int, bucket: Tuple[int, int]):
+    """The (B, 3) int64 table of (byte offset, h, w) and the (B, K, 4)
+    float32 boxes inside a staging buffer, as views of it."""
+    boxes_at, images_at, _ = staging_layout(B, K, bucket)
+    return (buf[:24 * B].view(torch.int64).view(B, 3),
+            buf[boxes_at:images_at].view(torch.float32).view(B, K, 4))
+
+
+def stage_requests(buf: torch.Tensor, requests: Sequence[Tuple[np.ndarray, ...]],
+                   boxes: np.ndarray, bucket: Tuple[int, int]):
+    """Write a call's requests into ``buf`` (a flat uint8 CPU tensor of at
+    least ``staging_layout``'s bytes): each request's (byte offset, h, w)
+    into the table, ``boxes`` (``request_boxes``) after it, each raw image
+    after those, back to back with no padding; an image larger than the
+    bucket is downscaled first (``fit_to_bucket``), counted in
+    ``serve.pack_resized``. The copies are numpy's, on the calling thread:
+    torch's ``copy_``, which hands a large copy to its intra-op threads,
+    took ~6 ms for one image on an H100's host and raised a one-image
+    call's p95 by as much. Counts the
+    pixels as ``pack_requests`` does. Returns (bytes used, original (w, h)
+    per request)."""
+    B, K, _ = boxes.shape
+    table, staged_boxes = (v.numpy() for v in staged_views(buf, B, K, bucket))
+    staged_boxes[...] = boxes
+    off = staging_layout(B, K, bucket)[1]
+    flat = buf.numpy()
+    sizes = []
+    for i, (image, *_) in enumerate(requests):
+        _check_image(image)
+        sizes.append((image.shape[1], image.shape[0]))
+        h, w = fit_to_bucket(*image.shape[:2], bucket)
+        if (h, w) != image.shape[:2]:
+            image = _resize_bilinear(image, h, w)
+            trace.count("serve.pack_resized")
+        flat[off:off + h * w * 3].reshape(h, w, 3)[...] = image
+        table[i] = off, h, w
+        trace.count("serve.px_real", h * w)
+        off += _aligned(h * w * 3)
+    trace.count("serve.px_bucket", B * bucket[0] * bucket[1])
+    return off, sizes
 
 
 def pack_points(requests: Sequence[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray, np.ndarray]:
@@ -70,43 +143,81 @@ def pack_points(requests: Sequence[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray,
 
 class Predictor:
     """Serves a stage-2 CountingDetr under any of its priors. Weights come
-    from ``state_dict`` or, without one, from ``seed``."""
+    from ``state_dict`` or, without one, from ``seed``.
+
+    The predictor owns one staging buffer on the host (pinned on a card)
+    and one on the device, each grown to the most bytes a call's B can
+    take at its first call of that B: the warm-up calls allocate them. A
+    call waits for the previous call's copy to have left the host buffer
+    before it writes there."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
                  device="cuda", bucket: Tuple[int, int] = (592, 592), seed: int = 0):
         self.model = build_model(cfg, device=device, seed=seed, state_dict=state_dict)
         self.device = next(self.model.parameters()).device
         self.bucket = tuple(bucket)
+        self._host = self._dev = None  # the staging buffers, flat uint8
+        # on a card: recorded after each copy from _host
+        self._copied = torch.cuda.Event() if self.device.type == "cuda" else None
 
     @torch.inference_mode()
-    def forward(self, images: np.ndarray, pad_mask: np.ndarray, exemplar_boxes: np.ndarray,
-                points: Optional[np.ndarray] = None,
-                points_valid: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-        """One forward of a packed batch on the predictor's device (the
-        points for the sampled and defined priors); with the mask head, its
-        ``pred_masks`` (B, L, H/4, W/4) logits too."""
-        dev = self.device
+    def forward(self, images, pad_mask, exemplar_boxes, points=None,
+                points_valid=None) -> Dict[str, torch.Tensor]:
+        """One forward of a packed batch (the points for the sampled and
+        defined priors): tensors on the predictor's device, or the numpy
+        arrays of ``pack_requests`` (and ``pack_points``), copied here; with
+        the mask head, its ``pred_masks`` (B, L, H/4, W/4) logits too."""
         arrays = [images, pad_mask, exemplar_boxes]
         if points is not None:
             arrays += [points, points_valid]
-        with trace.span("serve.h2d"):
-            inputs = [torch.from_numpy(a).to(dev, non_blocking=True) for a in arrays]
+        if any(not isinstance(a, torch.Tensor) or a.device != self.device for a in arrays):
+            with trace.span("serve.h2d"):
+                arrays = [torch.as_tensor(a).to(self.device, non_blocking=True) for a in arrays]
         with trace.span("serve.model"):
-            return self.model(*inputs, aux_outputs=False)
+            return self.model(*arrays, aux_outputs=False)
 
     def predict(self, requests: Sequence[Tuple[np.ndarray, ...]]) -> List[Dict]:
         with trace.span("serve.predict"):
             return self._predict(requests)
 
+    def _stage(self, requests: Sequence[Tuple[np.ndarray, ...]]):
+        """The requests into the host staging buffer: (bytes used, boxes
+        shape, original (w, h) per request)."""
+        if not requests:
+            raise ValueError("predict takes at least one request")
+        boxes = request_boxes(requests)
+        need = staging_layout(*boxes.shape[:2], self.bucket)[2]
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._host is None or self._host.numel() < need:
+            self._host = torch.empty(need, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+            self._dev = torch.empty(need, dtype=torch.uint8, device=self.device)
+        used, sizes = stage_requests(self._host, requests, boxes, self.bucket)
+        return used, boxes.shape, sizes
+
+    def _upload(self, used: int, boxes_shape: Tuple[int, ...]):
+        """The staged bytes to the device in one copy, then the pack kernel:
+        (images, pad_mask, exemplar boxes) on the device."""
+        self._dev[:used].copy_(self._host[:used], non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        table, boxes = staged_views(self._dev, *boxes_shape[:2], self.bucket)
+        return (*pack_kernel.pack_images(self._dev, table, self.bucket), boxes)
+
     def _predict(self, requests: Sequence[Tuple[np.ndarray, ...]]) -> List[Dict]:
         points = valid = None
         prior = self.model.cfg.spatial_prior
         with trace.span("serve.pack"):
-            images, masks, rects, sizes = pack_requests(requests, self.bucket)
+            used, boxes_shape, sizes = self._stage(requests)
             if prior in POINTS_PRIORS:
                 if any(len(r) < 3 for r in requests):
                     raise ValueError(f"the {prior} prior takes (image, boxes, points) requests")
                 points, valid = pack_points(requests)
+        with trace.span("serve.h2d"):
+            images, masks, rects = self._upload(used, boxes_shape)
+            if points is not None:
+                points, valid = (torch.from_numpy(a).to(self.device, non_blocking=True)
+                                 for a in (points, valid))
         out = self.forward(images, masks, rects, points, valid)
         with trace.span("serve.d2h"):
             logits = out["pred_logits"].cpu().numpy()

@@ -22,8 +22,12 @@ thread: every span of one ``Predictor.predict`` call lies inside its
 ``serve.predict`` span.
 
     serve.predict   Predictor.predict, the whole call
-    serve.pack      the requests padded, stacked and space-to-depth packed
-    serve.h2d       the packed arrays copied to the device
+    serve.pack      the requests staged: each raw image copied into the
+                    predictor's pinned buffer, with the boxes and a table of
+                    offsets and sizes (``serve.py::stage_requests``)
+    serve.h2d       the staged bytes copied to the device in one copy and
+                    the pack kernel launched (``ops/kernels/pack_kernel.py``);
+                    in ``Predictor.forward``, the copy of host arrays
     serve.model     the model's forward issued (the host's time; the device
                     runs behind it)
     serve.d2h       the logits and boxes read back (waits for the device)
@@ -38,9 +42,12 @@ device. The counters:
 
     serve.px_real    pixels of the request images after any downscale
     serve.px_bucket  pixels of the buckets they are padded into
-    launch.rcda, launch.rcda_rank1, launch.mha, launch.auction
+    serve.pack_resized  requests larger than the bucket, downscaled on the
+                     host before they are staged
+    launch.rcda, launch.rcda_rank1, launch.mha, launch.auction, launch.pack
                      kernel launches by variant, whichever source ran
-                     (``launch_counts``)
+                     (``launch_counts``); ``pack`` is one a predict call on
+                     a card
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
-LAUNCHES = ("rcda", "rcda_rank1", "mha", "auction")
+LAUNCHES = ("rcda", "rcda_rank1", "mha", "auction", "pack")
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _NULL = contextlib.nullcontext()

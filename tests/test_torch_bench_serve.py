@@ -198,7 +198,8 @@ def test_main_prints_the_root_bench_line(capsys, packed):
     assert stats["device_profile_img_per_s"] is None  # no profile off the card
     assert stats["packed"] == (packed == "1") and stats["lo"] == 1 and stats["hi"] == 4
     assert stats["forwards"] == 2 * (1 + 4)  # the pairs after the warm runs
-    assert stats["launches"] == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0}
+    assert stats["launches"] == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0,
+                                 "pack": 0}
 
 
 @pytest.mark.parametrize("env,raises,match", [

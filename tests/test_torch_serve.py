@@ -21,8 +21,10 @@ from countdetr_tpu.eval.postprocess import adaptive_threshold_counting as j_coun
 
 from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting as t_count
 from countdetr_tpu_torch.config import TrainConfig
-from countdetr_tpu_torch.ops.kernels import _build, auction_kernel, mha_kernel, rcda_kernel
-from countdetr_tpu_torch.serve import Predictor
+from countdetr_tpu_torch.ops.kernels import (_build, auction_kernel, mha_kernel, pack_kernel,
+                                             rcda_kernel)
+from countdetr_tpu_torch.serve import (Predictor, pack_requests, request_boxes, stage_requests,
+                                       staged_views, staging_layout)
 from countdetr_tpu_torch.train.train_step import Trainer
 from countdetr_tpu_torch.utils import trace
 from countdetr_tpu_torch.weights import params_from_jax
@@ -146,9 +148,22 @@ def test_kernel_wrappers_run_plain_path_on_cpu_without_nvcc(rng, monkeypatch):
     torch.testing.assert_close(auction_kernel.auction_assign(benefit, active, eps, 100),
                                auction_kernel.auction_plain(benefit, active, eps, 100),
                                rtol=0, atol=0)
-    assert trace.launch_counts() == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0}
+    reqs = [(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), np.zeros((3, 4), np.float32))
+            for h, w in ((9, 7), (10, 12))]
+    boxes = request_boxes(reqs)
+    staged = torch.zeros(staging_layout(2, 3, (10, 12))[2], dtype=torch.uint8)
+    stage_requests(staged, reqs, boxes, (10, 12))
+    table = staged_views(staged, 2, 3, (10, 12))[0]
+    images, masks, _, _ = pack_requests(reqs, (10, 12))
+    got = pack_kernel.pack_images(staged, table, (10, 12))
+    np.testing.assert_array_equal(got[0].numpy(), images)
+    np.testing.assert_array_equal(got[1].numpy(), masks)
+    assert trace.launch_counts() == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0,
+                                     "pack": 0}
     with pytest.raises(ValueError):
         auction_kernel.auction_assign(benefit.to("meta"), active.to("meta"), eps.to("meta"), 100)
+    with pytest.raises(ValueError):
+        pack_kernel.pack_images(staged.to("meta"), table.to("meta"), (10, 12))
     with pytest.raises(ValueError):
         rcda_kernel.rcda_core(*(a.to("meta") for a in args), 2)
     with pytest.raises(ValueError):

@@ -12,7 +12,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from countdetr_tpu_torch.config import stage2_config
-from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, rcda_kernel
+from countdetr_tpu_torch.ops.kernels import auction_kernel, mha_kernel, pack_kernel, rcda_kernel
 from countdetr_tpu_torch.serve import Predictor, pack_requests
 from countdetr_tpu_torch.utils import trace
 
@@ -188,11 +188,14 @@ def test_pixel_counters_are_exact(sizes, real):
 
 
 def test_launch_counters():
-    assert trace.launch_counts() == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0}
+    assert trace.launch_counts() == {"rcda": 0, "rcda_rank1": 0, "mha": 0, "auction": 0,
+                                     "pack": 0}
     for name, n in (("launch.rcda", 3), ("launch.rcda_rank1", 1), ("launch.mha", 2),
-                    ("launch.auction", 1), ("launch.rcda", 1), ("serve.px_real", 7)):
+                    ("launch.auction", 1), ("launch.rcda", 1), ("launch.pack", 5),
+                    ("serve.px_real", 7)):
         trace.count(name, n)
-    assert trace.launch_counts() == {"rcda": 4, "rcda_rank1": 1, "mha": 2, "auction": 1}
+    assert trace.launch_counts() == {"rcda": 4, "rcda_rank1": 1, "mha": 2, "auction": 1,
+                                     "pack": 5}
     copy = trace.counters()
     copy["launch.mha"] = 99
     assert trace.launch_counts()["mha"] == 2
@@ -204,7 +207,7 @@ def test_launch_counters():
 
 
 def test_wrappers_hold_no_module_counters():
-    for mod in (rcda_kernel, mha_kernel, auction_kernel):
+    for mod in (rcda_kernel, mha_kernel, auction_kernel, pack_kernel):
         assert not hasattr(mod, "launches") and not hasattr(mod, "rank1_launches")
 
 
