@@ -10,12 +10,15 @@ The cell's parameters (``benchmark/workloads/<name>.json``):
                    the mix, a fixed amount for a given --seconds (a count
                    taken from a timed pass in set-up moved by 18-30 blocks
                    from run to run, and the rate with it)
-  check            ``sample_images`` images drawn from the seed (with the
-                   first of the densest among them) and the ``limits``
+  check            ``sample_images`` images drawn from the seed, among them
+                   the pass's densest and one of each point tier that
+                   ``tiers`` bounds (counts up to 128, up to 700, ...), and
+                   the ``limits``
 
 Set-up builds the model and runs one pass over the mix's warm-up images,
 every (bucket, point tier) shape of the traffic; the window is one pass
-over the blocks. The check reads the pass's JSON:
+over the blocks; the traced run profiles the window's block that holds its
+densest image once more. The check reads the pass's JSON:
   layout_mismatch  annotations out of place: an image missing or twice, a
       count of boxes other than its dots, ids out of order, a centre other
       than int() of its dot in pixels, an area outside what int() of the
@@ -94,7 +97,8 @@ class Driver:
         return win
 
     def profiled(self):
-        one = self.traffic["dataset"](1)
+        ds, block = self.dataset, self.traffic["block"]
+        one = self.traffic["dataset"](1, max(range(len(ds)), key=ds.num_points) // block)
         self._pass(one, "profiled.json")
         images = [(*one.image_size(i), one.num_points(i)) for i in range(len(one))]
         return images, len(one)
@@ -138,12 +142,17 @@ class Driver:
 
     def _sample(self, ds) -> List[int]:
         rng = np.random.default_rng([self.seed, 2])
-        n = min(self.cell["check"]["sample_images"], len(ds))
-        picked = rng.choice(len(ds), size=n, replace=False).tolist()
-        densest = max(range(len(ds)), key=ds.num_points)
-        if densest not in picked:
-            picked[0] = densest
-        return sorted(picked)
+        check = self.cell["check"]
+        counts = np.asarray([ds.num_points(i) for i in range(len(ds))])
+        tier = np.searchsorted(check["tiers"], counts)  # 0: up to tiers[0] points, ...
+        picked = [int(np.argmax(counts))]
+        for t in range(len(check["tiers"])):
+            members = np.flatnonzero(tier == t)
+            if len(members) and t not in tier[picked]:
+                picked.append(int(rng.choice(members)))
+        n = min(check["sample_images"], len(ds))
+        rest = [int(i) for i in rng.permutation(len(ds)) if i not in picked]
+        return sorted(picked + rest[:max(0, n - len(picked))])
 
     @staticmethod
     def _layout(written: Dict, ds) -> tuple:

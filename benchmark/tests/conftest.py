@@ -24,21 +24,3 @@ def card():
         pytest.skip("needs a CUDA card")
     return "cuda"
 
-
-@pytest.fixture(scope="session")
-def pseudo_root(tmp_path_factory):
-    """A checkout whose manifest adds the stage-1 pseudo-labelling cell,
-    which BENCHMARK.json leaves out (its host-bound rate spread more than
-    any bound allows; PERF.md, Open questions): the benchmark's folder by a
-    link, BENCHMARK.json with the cell's entries from ``pseudo_cell.json``."""
-    import json
-
-    from benchmark import harness
-
-    root = tmp_path_factory.mktemp("pseudo_checkout")
-    (root / "benchmark").symlink_to(harness.BENCH, target_is_directory=True)
-    man = harness.manifest()
-    for key, entries in harness.load_json(harness.BENCH / "tests" / "pseudo_cell.json").items():
-        man[key] = man[key] + entries
-    (root / "BENCHMARK.json").write_text(json.dumps(man))
-    return root

@@ -46,28 +46,33 @@ def test_serve_calls_cycle_the_pool():
 
 def test_fsc147_count_composition():
     m = mix("fsc147_pseudo")
-    counts = fsc147_points.block_counts(m)
-    assert len(counts) == 64 and counts[-1] == 3731 and max(counts) == 3731
-    assert min(counts) == 7 and counts[:-1] == sorted(counts[:-1])
-    # the (i + 0.5) / 63 quantiles of the log-normal of median 35, sigma 1
-    assert counts[31] == 35 and counts[62] == 390
-    assert 100 < np.mean(counts) < 130  # the 3731-dot image lifts the mean of 56
+    counts = fsc147_points.dataset_counts(m)
+    assert len(counts) == 6144 and counts[-1] == 3731 and max(counts) == 3731
+    assert min(counts) == 7 and counts == sorted(counts) and counts.count(3731) == 1
+    # the (i + 0.5) / 6144 quantiles of the log-normal of median 35, sigma 1:
+    # FSC-147's mean of 56 and its 343,818 objects over 6135 images
+    assert counts[3071] == 35 and counts[-2] == 1144
+    assert 55 < np.mean(counts) < 60 and 340_000 < sum(counts) < 360_000
+    # the point tiers: 594 images over 128 dots, 8 over 700
+    assert sum(c > 128 for c in counts) == 594 and sum(c > 700 for c in counts) == 8
 
 
 def test_fsc147_same_seed_same_dataset():
-    m = mix("fsc147_pseudo", height=32, widths=[32, 64], block=6, warm_widths=[32, 64],
-            warm_counts=[3, 9], max_points=50, lognormal_median=5)
+    m = mix("fsc147_pseudo", height=32, widths=[32, 64], block=6, dataset_images=9,
+            warm_widths=[32, 64], warm_counts=[3, 9], max_points=50, lognormal_median=5)
     a = fsc147_points.generate(m, 12345678901, "cpu")
     b = fsc147_points.generate(m, 12345678901, "cpu")
     c = fsc147_points.generate(m, 4, "cpu")
     da, db, dc = a["dataset"](3), b["dataset"](3), c["dataset"](3)
-    assert len(da) == 18
+    assert len(da) == 18 and a["block"] == 6
     for i in range(len(da)):
         sa, sb = da[i], db[i]
         assert np.array_equal(sa["image"], sb["image"]) and np.array_equal(sa["points"], sb["points"])
         assert sa["orig_size"] == (sa["image"].shape[1], sa["image"].shape[0])
-    per_block = lambda d: [sorted(d.num_points(i) for i in range(b * 6, b * 6 + 6)) for b in range(3)]
-    assert per_block(da) == per_block(dc) == [sorted(fsc147_points.block_counts(m))] * 3
+    # every seed the same counts over each pass through the dataset, in its own order
+    per_pass = lambda d: [sorted(d.num_points(i) for i in range(r * 9, r * 9 + 9)) for r in range(2)]
+    assert per_pass(da) == per_pass(dc) == [fsc147_points.dataset_counts(m)] * 2
+    assert [da.num_points(i) for i in range(18)] != [dc.num_points(i) for i in range(18)]
     widths = lambda d: sorted(d.image_size(i)[1] for i in range(6))
     assert widths(da) == widths(dc) == [32, 32, 32, 64, 64, 64]
     # fresh dots in every block, the pixels shared by reference
@@ -85,3 +90,7 @@ def test_fsc147_blocks_are_a_prefix():
     short, long = t["dataset"](2), t["dataset"](5)
     for i in range(len(short)):  # a longer window sends the same first blocks
         assert np.array_equal(short[i]["points"], long[i]["points"])
+    third = t["dataset"](1, 3)  # and any one block alone, as the traced run sends it
+    for i in range(len(third)):
+        assert np.array_equal(third[i]["points"], long[18 + i]["points"])
+        assert third.image_size(i) == long.image_size(18 + i)

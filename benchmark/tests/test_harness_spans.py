@@ -2,7 +2,8 @@
 (``benchmark/yardstick/spans.py`` and the metric files that bind them) on
 canned Chrome-trace events with known answers: two predict calls, their
 spans, the launches that link each device event to its span, a launch on
-another thread and one outside every span."""
+another thread and one outside every span; and two stage-1 forwards of a
+pseudo-label pass, the same way."""
 
 import dataclasses
 
@@ -75,14 +76,42 @@ ANSWERS = {
     "backbone_device_ms.serve": (60 + 60 + 100) / IMAGES / 1e3,
     "attn_device_ms.serve": (40 + 20) / IMAGES / 1e3,
 }
-NEW = tuple(ANSWERS) + ("real_px_pct.serve",)
+
+# a stage-1 pass: two batches' forwards in the pseudo-label driver's
+# ``model_forward`` ranges, each with the attention cores' spans inside
+PSEUDO_EVENTS = [
+    span("bench_window", 0, 2000),
+    span("model_forward", 100, 400),
+    span("core.rcda B=8 L=1008 24x42 float32", 150, 30),
+    span("core.rcda_rank1 B=8 L=700 24x42 float32", 200, 20),
+    span("core.mha B=8 L=700 S=700 float32", 250, 20),
+    launch(21, 120), device(21, 130, 170),  # in model_forward, in no core span
+    launch(22, 160), device(22, 180, 220, name="rcda_tf32_kernel"),
+    launch(23, 210), device(23, 220, 240, name="rcda_tf32_kernel"),
+    launch(24, 255), device(24, 260, 290, name="mha_tf32_kernel"),
+    launch(25, 262, tid=2), device(25, 290, 300),  # in core.mha's time, on another thread
+    launch(26, 600), device(26, 610, 700),  # the host loop between the forwards
+    span("model_forward", 1000, 300),
+    span("core.mha B=8 L=5600 S=5600 float32", 1100, 50),
+    launch(27, 1110), device(27, 1150, 1250, name="mha_tf32_kernel"),
+    launch(28, 1140), device(28, 2100, 2110),  # runs after the window closed
+    # outside the window
+    span("model_forward", 2500, 100),
+]
+PSEUDO_IMAGES = 16
+PSEUDO_ANSWERS = {
+    "model_issue_ms.pseudo": (400 + 300) / 2 / 1e3,
+    # (180, 240) merged, (260, 290), (1150, 1250)
+    "attn_device_ms.pseudo": (60 + 30 + 100) / PSEUDO_IMAGES / 1e3,
+}
+NEW = tuple(ANSWERS) + tuple(PSEUDO_ANSWERS) + ("real_px_pct.serve",)
 
 
-def context(events=EVENTS):
+def context(events=EVENTS, images=IMAGES):
     return harness.Context(model={}, dtype="float32", setup_s=0.0, window=harness.Window(),
                            trace=harness.Trace(events=list(events), range="bench_window",
-                                               images=[(64, 64, 0)] * IMAGES,
-                                               requests=IMAGES))
+                                               images=[(64, 64, 0)] * images,
+                                               requests=images))
 
 
 @pytest.mark.parametrize("name", sorted(ANSWERS))
@@ -90,13 +119,21 @@ def test_reader_reads_the_known_answer(name):
     assert harness.metric_reader(name)(context()) == pytest.approx(ANSWERS[name])
 
 
+@pytest.mark.parametrize("name", sorted(PSEUDO_ANSWERS))
+def test_pseudo_reader_reads_the_known_answer(name):
+    ctx = context(PSEUDO_EVENTS, PSEUDO_IMAGES)
+    assert harness.metric_reader(name)(ctx) == pytest.approx(PSEUDO_ANSWERS[name])
+
+
 def test_new_metrics_are_in_the_manifest():
     entries = {m["name"]: m for m in harness.manifest()["per_layer"]}
+    cells = {"single": "s2_serve_b1", "serve": "s2_serve_b32", "pseudo": "s1_pseudo_fsc147"}
     for name in NEW:
-        cell = "s2_serve_b1" if name.endswith(".single") else "s2_serve_b32"
+        cell = cells[name.rsplit(".", 1)[1]]
         assert entries[name]["workloads"] == [cell]
-        assert entries[name]["source"] == ("program_counter" if name == "real_px_pct.serve"
-                                           else "program_span")
+        source = {"real_px_pct.serve": "program_counter",
+                  "model_issue_ms.pseudo": "host_clock"}.get(name, "program_span")
+        assert entries[name]["source"] == source
 
 
 def test_entry_and_model_idle_within_idle_pct():

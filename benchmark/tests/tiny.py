@@ -18,11 +18,11 @@ CELLS = {
                  "check": {"sample_calls": 3, "limits": SERVE_LIMITS}}},
     "s1_pseudo_fsc147": {
         "model": TINY,
-        "traffic": {"height": 64, "widths": [64, 96, 128], "block": 16, "lognormal_median": 5,
-                    "min_points": 2, "max_points": 40, "warm_widths": [64, 96, 128],
-                    "warm_counts": [4, 40]},
+        "traffic": {"height": 64, "widths": [64, 96, 128], "block": 16, "dataset_images": 16,
+                    "lognormal_median": 5, "min_points": 2, "max_points": 40,
+                    "warm_widths": [64, 96, 128], "warm_counts": [4, 40]},
         # one bucket: the 16 images of a block fill two batches of 8
         "cell": {"buckets": [[64, 128]], "num_workers": 0, "blocks_per_second": 1.0,
-                 "check": {"sample_images": 3,
+                 "check": {"sample_images": 3, "tiers": [8, 40],
                            "limits": {"layout_mismatch": 0, "wh_gap_px": 1e-3}}}},
 }
