@@ -361,6 +361,9 @@ def bound(ops, nbytes, dtype, exps=0, peak=None):
 
 # stage 1's RCDA calls: B=8 in the 384x672 bucket, C5 24x42, image 1 padded
 STAGE1_SHAPE = dict(B=8, H=24, W=42, pad=(34, 20))
+# the COCO detector's C5 grids in its 800x1344 and 1344x800 buckets, with the
+# (columns, rows) an 800x1067 image keeps
+COCO_GRIDS = ((50, 84, (67, 50)), (84, 50, (50, 67)))
 
 
 def rcda_case(rcda_kernel, g, dt, L, B=32, H=37, W=37, E=256, n=8, variant="v3", pad=(30, 25)):
@@ -599,7 +602,8 @@ def f32_determinism(rcda_kernel, mha_kernel, g, kinds=("rcda", "rank1", "mha"), 
 def f32_cases(rcda_kernel, mha_kernel, g, kinds):
     """The float32 attention rows of PERF.md that the default-dtype paths
     launch, timed: RCDA v3 at serving B=32 (L=1369, 576), stage 1's B=8
-    24x42 (L=1008, 700) and a TP rank's E=128 (L=1369, 576); MHA at B=8
+    24x42 (L=1008, 700), a TP rank's E=128 (L=1369, 576) and the COCO
+    detector's B=8 50x84 and 84x50 (L=4200, 900; CUDA cores); MHA at B=8
     S=700 / 576 (the decoder's self-attention over the point tiers), the
     longtail shapes (standard attention's encoder and cross-attention at
     B=32, the level layer) and a TP rank's (L=S=1369 over the grid, 576);
@@ -612,6 +616,10 @@ def f32_cases(rcda_kernel, mha_kernel, g, kinds):
         rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, **STAGE1_SHAPE) for L in (1008, 700)]
         rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, E=TP_E, n=TP_HEADS)
                         for L in (1369, 576)]
+        # the COCO detector's B=8 grids past a 64-wide axis (detr_coco_b8):
+        # the CUDA-core route, an 800 x 1067 image padded in its bucket
+        rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, B=8, H=H, W=W, pad=pad)
+                        for H, W, pad in COCO_GRIDS for L in (H * W, 900)]
     if "mha" in kinds:
         rec["mha"] = [mha_case(mha_kernel, g, f32, B=8, L=L) for L in (700, 576)]
         rec["mha"] += [mha_case(mha_kernel, g, f32, B=B, L=L, S=S, key_grid=grid)

@@ -19,7 +19,9 @@ call takes its variant's kernel. There is no fallback between kernels: a
 CUDA call that the chosen kernel cannot take raises. Each call is a
 ``core.rcda`` (``core.rcda_rank1``) span and each launch counts
 ``launch.rcda`` (``launch.rcda_rank1``) by the variant asked for, whichever
-source ran (``utils/trace.py``).
+source ran; a float32 launch adds to ``launch.rcda_cuda_cores`` 1 where it
+takes the CUDA cores and 0 where it takes the tensor cores
+(``utils/trace.py``).
 
 Inputs are the projected tensors, exactly what ``ops/rcda.py`` computes:
   q_row, q_col : (B, L, E), pre-scaled by d**-0.5
@@ -203,6 +205,8 @@ def _rcda_forward(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads,
     if err != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {err}")
     trace.count("launch.rcda_rank1" if variant == "rank1" else "launch.rcda")
+    if q_row.dtype == torch.float32:  # 0 on the tensor cores: the counter exists
+        trace.count("launch.rcda_cuda_cores", int(code != F32_TENSOR_CORES))
     return out
 
 

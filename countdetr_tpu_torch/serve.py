@@ -1,26 +1,41 @@
-"""Stage-2 counting inference: image + 3 exemplar boxes in, detections and a
-count out. The inference half of countdetr_tpu/train/engine.py
-(``infer_detections``), without datasets or COCO files.
+"""Inference of either stage: a request's image (with the exemplar boxes of
+stage 2) in, its detections out. The inference half of
+countdetr_tpu/train/engine.py (``infer_detections``), without datasets or
+COCO files.
 
     from countdetr_tpu_torch.config import stage2_config
     from countdetr_tpu_torch.serve import Predictor
     pred = Predictor(stage2_config(compute_dtype="bfloat16"))  # on "cuda"
     results = pred.predict([(image_uint8_hwc, boxes_3x4_xyxy_normalized)])
 
-A call stages its requests' raw images back to back, with their boxes and a
+A stage-2 model (exemplar aggregation) counts: each request is (image,
+boxes) and gets ``count``, ``threshold``, ``boxes_cxcywh_px`` and ``scores``
+(the counting rule). A stage-1 model is served as the detector it is
+(Anchor DETR): each request is (image,) and gets the top 100 of its
+queries x classes sigmoid scores (``topk_postprocess``, the reference's
+``PostProcess``): ``scores``, ``labels`` and ``boxes_xyxy_px`` at the
+image's own size, the boxes being ``pred_points`` and ``pred_wh`` as cxcywh.
+
+    pred = Predictor(ModelConfig(num_classes=91), bucket=((800, 1344), (1344, 800)))
+    results = pred.predict([(image_uint8_hwc,)])
+
+A predictor holds one bucket or several; a call goes into the smallest
+that holds every one of its images (of equal areas, the first listed), or,
+where none does, into the largest, its larger images downscaled to fit. A
+call stages its requests' raw images back to back, with their boxes and a
 table of offsets and sizes, in one buffer of the predictor's (pinned on a
 card; ``stage_requests``), copies the used part to the device in one copy,
 and there pads, masks and space-to-depth packs them in one kernel launch
-(``ops/kernels/pack_kernel.py``); one forward follows. Each request gets
-``count``, ``threshold``, ``boxes_cxcywh_px`` and ``scores``. A call is one
+(``ops/kernels/pack_kernel.py``); one forward follows. A call is one
 ``serve.predict`` span around ``serve.pack`` (the staging), ``serve.h2d``
-(the copy and the pack launch), ``serve.model``, ``serve.d2h`` and
-``serve.count``; staging counts ``serve.px_real``, ``serve.px_bucket`` and
-``serve.pack_resized`` (``utils/trace.py``). ``pack_requests`` is the same
-pack on the host, in numpy, for callers of ``Predictor.forward``. Under the
-learned and grid priors a request is (image, boxes); under the sampled and
-defined priors it carries its anchors too, (image, boxes, points (S, 2)
-normalized x, y), padded to the batch's longest with a validity mask.
+(the copy and the pack launch), ``serve.model``, then stage 2's
+``serve.d2h`` and ``serve.count`` or stage 1's ``serve.topk``; staging
+counts ``serve.px_real``, ``serve.px_bucket`` and ``serve.pack_resized``
+(``utils/trace.py``). ``pack_requests`` is the same pack on the host, in
+numpy, for callers of ``Predictor.forward``. Under the learned and grid
+priors a request is as above; under stage 2's sampled and defined priors it
+carries its anchors too, (image, boxes, points (S, 2) normalized x, y),
+padded to the batch's longest with a validity mask.
 """
 
 from __future__ import annotations
@@ -33,12 +48,13 @@ import torch
 from countdetr_tpu_torch.config import ModelConfig
 from countdetr_tpu_torch.data.batching import (_resize_bilinear, fit_to_bucket,
                                                pack_space_to_depth, pad_to_bucket)
-from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting
+from countdetr_tpu_torch.eval.postprocess import adaptive_threshold_counting, topk_postprocess
 from countdetr_tpu_torch.models.anchor_detr import build_model
 from countdetr_tpu_torch.ops.kernels import pack_kernel
 from countdetr_tpu_torch.utils import trace
 
 POINTS_PRIORS = ("defined", "sampled")
+TOPK = 100  # detections a stage-1 request gets (the reference's PostProcess)
 ALIGN = 16  # bytes: every section and image of the staging buffer starts on a multiple
 
 
@@ -52,10 +68,24 @@ def _check_image(image: np.ndarray):
                          f"{image.dtype} {image.shape}")
 
 
-def request_boxes(requests: Sequence[Tuple[np.ndarray, ...]]) -> np.ndarray:
-    """The requests' exemplar boxes, (B, K, 4) float32."""
+def request_boxes(requests: Sequence[Tuple[np.ndarray, ...]], exemplars: bool = True
+                  ) -> np.ndarray:
+    """The requests' exemplar boxes, (B, K, 4) float32; (B, 0, 4) for a
+    model that takes none (``exemplars`` False)."""
+    if not exemplars:
+        return np.zeros((len(requests), 0, 4), np.float32)
     return np.stack([np.asarray(boxes, dtype=np.float32).reshape(-1, 4)
                      for _, boxes, *_ in requests])
+
+
+def pick_bucket(sizes: Sequence[Tuple[int, int]], buckets: Sequence[Tuple[int, int]]
+                ) -> Tuple[int, int]:
+    """The smallest of ``buckets`` (by area; of equal areas the first) that
+    holds every (h, w) of ``sizes``, else the largest."""
+    fits = [b for b in buckets if all(h <= b[0] and w <= b[1] for h, w in sizes)]
+    if fits:
+        return min(fits, key=lambda b: b[0] * b[1])
+    return max(buckets, key=lambda b: b[0] * b[1])
 
 
 def pack_requests(requests: Sequence[Tuple[np.ndarray, ...]], bucket: Tuple[int, int]):
@@ -79,8 +109,8 @@ def pack_requests(requests: Sequence[Tuple[np.ndarray, ...]], bucket: Tuple[int,
 def staging_layout(B: int, K: int, bucket: Tuple[int, int]) -> Tuple[int, int, int]:
     """(byte offset of the boxes, of the first image, the most bytes any B
     requests of K boxes take) in a staging buffer: the (B, 3) int64 table
-    at 0, the (B, K, 4) float32 boxes, then each image, every one at an
-    ALIGN-byte offset."""
+    at 0, the (B, K, 4) float32 boxes (none where K = 0), then each image,
+    every one at an ALIGN-byte offset."""
     boxes_at = _aligned(24 * B)
     images_at = boxes_at + 16 * B * K
     return boxes_at, images_at, images_at + B * _aligned(bucket[0] * bucket[1] * 3)
@@ -142,32 +172,41 @@ def pack_points(requests: Sequence[Tuple[np.ndarray, ...]]) -> Tuple[np.ndarray,
 
 
 class Predictor:
-    """Serves a stage-2 CountingDetr under any of its priors. Weights come
-    from ``state_dict`` or, without one, from ``seed``.
+    """Serves a CountingDetr of either stage under any of its priors.
+    Weights come from ``state_dict`` or, without one, from ``seed``.
+    ``bucket`` is one (H, W) bucket or a tuple of them (``buckets``); the
+    attribute ``bucket`` is the one the call last staged went into (the
+    first before any call).
 
     The predictor owns one staging buffer on the host (pinned on a card)
     and one on the device, each grown to the most bytes a call's B can
-    take at its first call of that B: the warm-up calls allocate them. A
-    call waits for the previous call's copy to have left the host buffer
-    before it writes there."""
+    take at its first call of that B in its largest bucket: the warm-up
+    calls allocate them. A call waits for the previous call's copy to have
+    left the host buffer before it writes there."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
-                 device="cuda", bucket: Tuple[int, int] = (592, 592), seed: int = 0):
+                 device="cuda", bucket=(592, 592), seed: int = 0):
         self.model = build_model(cfg, device=device, seed=seed, state_dict=state_dict)
         self.device = next(self.model.parameters()).device
-        self.bucket = tuple(bucket)
+        one = np.ndim(bucket) == 1
+        self.buckets = tuple(tuple(int(n) for n in b) for b in ([bucket] if one else bucket))
+        self.bucket = self.buckets[0]  # the bucket of the call last staged
         self._host = self._dev = None  # the staging buffers, flat uint8
         # on a card: recorded after each copy from _host
         self._copied = torch.cuda.Event() if self.device.type == "cuda" else None
 
     @torch.inference_mode()
-    def forward(self, images, pad_mask, exemplar_boxes, points=None,
+    def forward(self, images, pad_mask, exemplar_boxes=None, points=None,
                 points_valid=None) -> Dict[str, torch.Tensor]:
-        """One forward of a packed batch (the points for the sampled and
-        defined priors): tensors on the predictor's device, or the numpy
-        arrays of ``pack_requests`` (and ``pack_points``), copied here; with
-        the mask head, its ``pred_masks`` (B, L, H/4, W/4) logits too."""
-        arrays = [images, pad_mask, exemplar_boxes]
+        """One forward of a packed batch (stage 2's exemplar boxes; the
+        points for the sampled and defined priors): tensors on the
+        predictor's device, or the numpy arrays of ``pack_requests`` (and
+        ``pack_points``), copied here; with the mask head, its
+        ``pred_masks`` (B, L, H/4, W/4) logits too. The model gets only the
+        prior arguments its stage takes."""
+        arrays = [images, pad_mask]
+        if self.model.cfg.stage == 2:
+            arrays.append(exemplar_boxes)
         if points is not None:
             arrays += [points, points_valid]
         if any(not isinstance(a, torch.Tensor) or a.device != self.device for a in arrays):
@@ -181,12 +220,14 @@ class Predictor:
             return self._predict(requests)
 
     def _stage(self, requests: Sequence[Tuple[np.ndarray, ...]]):
-        """The requests into the host staging buffer: (bytes used, boxes
-        shape, original (w, h) per request)."""
+        """The requests into the host staging buffer, in the bucket
+        ``pick_bucket`` gives them (kept for ``_upload``): (bytes used,
+        boxes shape, original (w, h) per request)."""
         if not requests:
             raise ValueError("predict takes at least one request")
-        boxes = request_boxes(requests)
-        need = staging_layout(*boxes.shape[:2], self.bucket)[2]
+        boxes = request_boxes(requests, self.model.cfg.stage == 2)
+        self.bucket = pick_bucket([r[0].shape[:2] for r in requests], self.buckets)
+        need = max(staging_layout(*boxes.shape[:2], b)[2] for b in self.buckets)
         if self._copied is not None:
             self._copied.synchronize()
         if self._host is None or self._host.numel() < need:
@@ -196,8 +237,9 @@ class Predictor:
         return used, boxes.shape, sizes
 
     def _upload(self, used: int, boxes_shape: Tuple[int, ...]):
-        """The staged bytes to the device in one copy, then the pack kernel:
-        (images, pad_mask, exemplar boxes) on the device."""
+        """The staged bytes to the device in one copy, then the pack kernel
+        into the staged call's bucket: (images, pad_mask, exemplar boxes)
+        on the device."""
         self._dev[:used].copy_(self._host[:used], non_blocking=True)
         if self._copied is not None:
             self._copied.record()
@@ -219,6 +261,8 @@ class Predictor:
                 points, valid = (torch.from_numpy(a).to(self.device, non_blocking=True)
                                  for a in (points, valid))
         out = self.forward(images, masks, rects, points, valid)
+        if self.model.cfg.stage == 1:
+            return self._detections(out, sizes)
         with trace.span("serve.d2h"):
             logits = out["pred_logits"].cpu().numpy()
             boxes = out["pred_boxes"].cpu().numpy()
@@ -234,3 +278,16 @@ class Predictor:
                     "scores": prob[i][keep],
                 })
         return results
+
+    def _detections(self, out: Dict[str, torch.Tensor], sizes) -> List[Dict]:
+        """Stage 1's results: ``topk_postprocess`` of the forward on the
+        device (its boxes ``pred_points`` and ``pred_wh`` as cxcywh), read
+        back."""
+        with trace.span("serve.topk"):
+            logits = out["pred_logits"]
+            boxes = torch.cat([out["pred_points"], out["pred_wh"]], dim=-1)
+            hw = torch.tensor([(h, w) for w, h in sizes], dtype=torch.float32)
+            top = topk_postprocess(logits, boxes, hw.to(self.device), k=TOPK)
+            scores, labels, xyxy = (top[n].cpu().numpy() for n in ("scores", "labels", "boxes"))
+        return [{"scores": scores[i], "labels": labels[i], "boxes_xyxy_px": xyxy[i]}
+                for i in range(len(sizes))]

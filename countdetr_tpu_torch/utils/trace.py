@@ -32,6 +32,8 @@ thread: every span of one ``Predictor.predict`` call lies inside its
                     runs behind it)
     serve.d2h       the logits and boxes read back (waits for the device)
     serve.count     the sigmoid and adaptive_threshold_counting
+    serve.topk      a stage-1 call's detections: topk_postprocess on the
+                    device and its results read back (waits for the device)
     model.backbone  the input normalised and the ResNet body issued
     core.rcda, core.rcda_rank1, core.mha, core.auction
                     one attention core or auction call (its dispatch: the
@@ -48,6 +50,10 @@ device. The counters:
                      kernel launches by variant, whichever source ran
                      (``launch_counts``); ``pack`` is one a predict call on
                      a card
+    launch.rcda_cuda_cores  float32 RCDA launches (counted in launch.rcda or
+                     launch.rcda_rank1 too) that ``f32_route`` sends to
+                     rcda.cu's CUDA-core kernel rather than the tensor cores
+                     (each float32 launch adds to it, 0 on the tensor cores)
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launches():
+    """Zero every ``launch.*`` counter."""
     with _lock:
-        for k in LAUNCHES:
-            _counters.pop(f"launch.{k}", None)
+        for k in [k for k in _counters if k.startswith("launch.")]:
+            del _counters[k]
