@@ -603,7 +603,7 @@ def f32_cases(rcda_kernel, mha_kernel, g, kinds):
     """The float32 attention rows of PERF.md that the default-dtype paths
     launch, timed: RCDA v3 at serving B=32 (L=1369, 576), stage 1's B=8
     24x42 (L=1008, 700), a TP rank's E=128 (L=1369, 576) and the COCO
-    detector's B=8 50x84 and 84x50 (L=4200, 900; CUDA cores); MHA at B=8
+    detector's B=8 50x84 and 84x50 (L=4200, 900; two 64-wide chunks); MHA at B=8
     S=700 / 576 (the decoder's self-attention over the point tiers), the
     longtail shapes (standard attention's encoder and cross-attention at
     B=32, the level layer) and a TP rank's (L=S=1369 over the grid, 576);
@@ -617,7 +617,8 @@ def f32_cases(rcda_kernel, mha_kernel, g, kinds):
         rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, E=TP_E, n=TP_HEADS)
                         for L in (1369, 576)]
         # the COCO detector's B=8 grids past a 64-wide axis (detr_coco_b8):
-        # the CUDA-core route, an 800 x 1067 image padded in its bucket
+        # the 3xTF32 kernel in two chunks, an 800 x 1067 image padded in its
+        # bucket
         rec["rcda"] += [rcda_case(rcda_kernel, g, f32, L, B=8, H=H, W=W, pad=pad)
                         for H, W, pad in COCO_GRIDS for L in (H * W, 900)]
     if "mha" in kinds:

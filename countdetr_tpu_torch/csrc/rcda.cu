@@ -57,12 +57,30 @@
 //    FMAs run under the other's products: per value group a warpgroup
 //    issues ~395 instructions beside 15 k8 products (~525 cycles of the
 //    tensor cores), so issue, not the tensor cores, bounds it (0.50 ms at
-//    B=32 L=1369, 40% of the bound; PERF.md). H and W up to 64 (one
-//    64-wide score tile), d up to 32 (a row of q or k in one swizzle span).
-//  * float32 past those limits (H or W > 64, d = 64): the score phase of
+//    B=32 L=1369, 40% of the bound; PERF.md). d up to 32 (a row of q or k
+//    in one swizzle span); H and W up to 128 in 64-wide chunks, the chunk
+//    count C a template parameter that launch picks from the grid: C = 1
+//    up to 64 (one score tile an axis; the instance the <= 64 grids have
+//    always run), C = 2 up to 128 (the COCO detector's 50x84 and 84x50).
+//    At C = 2 a tile takes the column side whole first (its score tiles,
+//    one exact softmax over them, a_col into shared memory), then the row
+//    scores of both chunks with one exact max and sum over W in registers,
+//    then the combine once a chunk of 64 columns: a_row^T of that chunk
+//    into the warpgroup's a_row^T area (64 columns wide, as at C = 1) and
+//    the value groups of that chunk's columns through the ring, into one
+//    f32 acc (the combine is linear in a_row, so nothing is rescaled).
+//    Shared memory decides that design: key tiles per chunk of each axis
+//    (hi and lo, 48 KB at 50x84), the q tiles inside the a_row^T area
+//    (they are dead once the scores are taken, and the next round's land
+//    after the sums are read) and a_col at a 64-float pitch, so 128 x 128
+//    at d = 32 fits with 2 ring stages, 50x84 and 84x50 with 4. The
+//    combine still bounds it at 50x84: 25 value groups x 11 k-steps x 3
+//    products a tile, issued as at 37x37.
+//  * float32 past those limits (H or W > 128, d = 64): the score phase of
 //    rcda_scores.cuh on the CUDA cores, then each thread a 4 query x 4
 //    channel register tile, two float4 shared reads per 16 FMAs, one value
-//    row staged at a time (rcda_f32_kernel).
+//    row staged at a time (rcda_f32_kernel); no grid of a benchmark cell
+//    takes it.
 // The Mosaic workarounds of the TPU kernel (the 0/1 fold matrix,
 // pltpu.repeat, the (B, n, W, d*H) value reshuffle) have no counterpart:
 // on CUDA the head-weighted combine is a plain accumulation in registers.
@@ -229,56 +247,78 @@ constexpr int kThreads = (kWG + 1) * 128;  // plus the producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kMaxStages = 4;      // value groups in flight, as many as fit
 constexpr int kN = 64;             // a value group: kN / D rows of H, the M of its product
-constexpr int kAP = 68;            // a_col row pitch in floats
 constexpr int kTurn = kWG + 2;     // named barriers kTurn + wg: warpgroup wg's turn to issue
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory in bytes from a 1024-aligned base: the key slices k_row and
-// k_col (64 rows of D floats, Rows<D>; hi in place, then their lo parts);
-// per warpgroup its q_row and q_col tiles as TMA lands them (Rows<D>),
-// a_row^T (Cols: 64 query rows by W8 = W rounded up to 8; hi, then lo),
-// which the tile's end reuses to sum the warps' partial outputs
-// ([64 / D][64][D + 4] floats), and its a_col map [H][kAP]; the ring of
-// value groups ([kN / D][W8][D], Rows<D>); the biases (f32, -inf past W
-// and H); the barriers: ring full and empty, the key slices, each
-// warpgroup's q tiles.
+// a_col row pitch in floats: 68 spreads a warp's writes over the banks; 64
+// past a 64-wide axis, where 128 x 128 needs the bytes (the reads are
+// broadcasts either way)
+__host__ __device__ constexpr int a_col_pitch(int C) { return C == 1 ? 68 : 64; }
+
+// 64-wide chunks of an axis the kernel instance for H x W takes: 1 up to 64,
+// 2 up to 128 (0: wider than any instance).
+inline int chunks_for(int H, int W) {
+  const int m = std::max(H, W);
+  return m <= 64 ? 1 : m <= 128 ? 2 : 0;
+}
+
+// Shared memory in bytes from a 1024-aligned base, for the instance of C
+// chunks: the key slices k_row and k_col (CW and CH tiles of 64 rows of D
+// floats, Rows<D>, the axes' own chunk counts; hi in place, then their lo
+// parts); per warpgroup its q_row and q_col tiles as TMA lands them
+// (Rows<D>), a_row^T of one pass (Cols: 64 query rows by PW8 = W rounded up
+// to 8, at most 64; hi, then lo), which the tile's end reuses to sum the
+// warps' partial outputs ([64 / D][64][D + 4] floats), and its a_col map
+// [H][a_col_pitch]; the ring of value groups ([kN / D][PW8][D], Rows<D>);
+// the biases (f32, 64 C each, -inf past W and H); the barriers: ring full
+// and empty, the key slices, each warpgroup's q tiles. At C = 2 the q tiles
+// lie in a_row^T's area (a tile's scores are done before its a_row^T is
+// written; the next round's q tiles land after its sums are read), which
+// with the narrower a_col pitch keeps 128 x 128 at D = 32 within 227 KB.
 struct Layout {
-  int w8, groups, group, tile, wg_bytes, kr, kc, kr_lo, kc_lo, wg, q, art, art_lo, acol, ring,
-      bias, bars, total;
-  __host__ __device__ Layout(int D, int H, int W, int stages) {
+  int cw, ch, w8, pw8, groups, group, tile, wg_bytes, kr, kc, kr_lo, kc_lo, wg, q, art, art_lo,
+      acol, ring, bias, bars, total;
+  __host__ __device__ Layout(int D, int C, int H, int W, int stages) {
     const int row = D == 16 ? 64 : 128;  // Rows<D>::kRowBytes (D <= 32)
+    cw = C == 1 ? 1 : (W + 63) / 64;
+    ch = C == 1 ? 1 : (H + 63) / 64;
     w8 = (W + 7) & ~7;
+    pw8 = C == 1 || w8 < 64 ? w8 : 64;
     groups = (H + kN / D - 1) / (kN / D);
-    group = (kN / D * w8 * row + 1023) & ~1023;
+    group = (kN / D * pw8 * row + 1023) & ~1023;
     tile = 64 * row;
     kr = 0;
-    kc = kr + tile;
-    kr_lo = kc + tile;
-    kc_lo = kr_lo + tile;
-    wg = kc_lo + tile;  // the warpgroups' areas, wg_bytes each
-    q = 0;              // (offsets inside a warpgroup's area)
-    art = q + 2 * tile;
-    art_lo = (w8 + 31) / 32 * 64 * 128;
+    kc = kr + cw * tile;
+    kr_lo = kc + ch * tile;
+    kc_lo = kr_lo + cw * tile;
+    wg = kc_lo + ch * tile;  // the warpgroups' areas, wg_bytes each
+    q = 0;                   // (offsets inside a warpgroup's area)
+    art = C == 1 ? q + 2 * tile : q;
+    art_lo = (pw8 + 31) / 32 * 64 * 128;
     const int red = 64 / D * 64 * (D + 4) * 4;
-    acol = art + (2 * art_lo > red ? 2 * art_lo : red);
-    wg_bytes = (acol + H * kAP * 4 + 1023) & ~1023;
+    int area = 2 * art_lo > red ? 2 * art_lo : red;
+    if (C > 1 && 2 * tile > area) area = 2 * tile;
+    acol = art + area;
+    wg_bytes = (acol + H * a_col_pitch(C) * 4 + 1023) & ~1023;
     ring = wg + kWG * wg_bytes;
     bias = ring + stages * group;
-    bars = bias + 2 * 64 * 4;
+    bars = bias + 2 * 64 * C * 4;
     total = bars + (2 * stages + 1 + kWG) * 8;
   }
 };
 
 // Ring stages: as many as fit, up to kMaxStages (0: none fits).
 inline int stages_for(int D, int H, int W) {
-  int s = kMaxStages;
-  while (s > 0 && Layout(D, H, W, s).total + 1024 > kMaxSmem) --s;
+  const int chunks = chunks_for(H, W);
+  int s = chunks ? kMaxStages : 0;
+  while (s > 0 && Layout(D, chunks, H, W, s).total + 1024 > kMaxSmem) --s;
   return s;
 }
 
 inline size_t smem_bytes(int D, int H, int W) {
   const int s = stages_for(D, H, W);
-  return s ? static_cast<size_t>(Layout(D, H, W, s).total) + 1024 : ~size_t{0} >> 1;
+  return s ? static_cast<size_t>(Layout(D, chunks_for(H, W), H, W, s).total) + 1024
+           : ~size_t{0} >> 1;
 }
 
 // The A operand of k-step ks from a Rows<D> tile of 64 rows (row 16 wl + g
@@ -298,7 +338,7 @@ __device__ __forceinline__ void load_a(const uint8_t* tile, int rows, int r0, in
   }
 }
 
-template <int D>
+template <int D, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
                  const __grid_constant__ CUtensorMap map_qc,
@@ -311,10 +351,11 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
   using R = tf32::Rows<D>;
   using tf32::Cols;
   constexpr int kG = kN / D;  // H rows per group
-  const Layout lay(D, H, W, stages);
+  constexpr int kAP = a_col_pitch(C);
+  const Layout lay(D, C, H, W, stages);
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* s_bias = reinterpret_cast<float*>(smem + lay.bias);  // row [64], then col [64]
+  float* s_bias = reinterpret_cast<float*>(smem + lay.bias);  // row [64 C], then col [64 C]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   uint64_t* empty = full + stages;
   uint64_t* k_full = empty + stages;
@@ -334,21 +375,28 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
     for (int i = 0; i < kWG; ++i) mbar_init(&q_full[i], 1);
     fence_barrier_init();
   }
-  for (int i = tid; i < 128; i += kThreads) {
-    const int j = i % 64;
-    s_bias[i] = i < 64 ? (j < W ? bias_row[b * W + j] : -INFINITY)
-                       : (j < H ? bias_col[b * H + j] : -INFINITY);
+  for (int i = tid; i < 128 * C; i += kThreads) {
+    const int j = i % (64 * C);
+    s_bias[i] = i < 64 * C ? (j < W ? bias_row[b * W + j] : -INFINITY)
+                           : (j < H ? bias_col[b * H + j] : -INFINITY);
   }
   __syncthreads();
 
   // The value slice streams once a round, kG rows of H a group (rows past W
-  // and H arrive as zeros).
-  const int n_groups = rounds * lay.groups;
+  // and H arrive as zeros); at C = 2 once a pass, pass p the groups of
+  // columns 64 p .. 64 p + 63, the last pass first.
+  const int per_round = lay.cw * lay.groups, n_groups = rounds * per_round;
   auto load_group = [&](int i) {
     const int st = i % stages;
-    mbar_arrive_expect_tx(&full[st], kG * lay.w8 * R::kRowBytes);
-    tma_load_4d(smem + lay.ring + st * lay.group, &map_v, &full[st], head * D, 0,
-                (i % lay.groups) * kG, b);
+    mbar_arrive_expect_tx(&full[st], kG * lay.pw8 * R::kRowBytes);
+    if constexpr (C == 1) {
+      tma_load_4d(smem + lay.ring + st * lay.group, &map_v, &full[st], head * D, 0,
+                  (i % lay.groups) * kG, b);
+    } else {
+      const int j = i % per_round;  // the passes run from the last chunk to the first
+      tma_load_4d(smem + lay.ring + st * lay.group, &map_v, &full[st], head * D,
+                  (lay.cw - 1 - j / lay.groups) * 64, (j % lay.groups) * kG, b);
+    }
   };
   if (warp >= kWG * 4) {
     // producer warpgroup: it hands its registers to the consumers, and its
@@ -356,9 +404,11 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
     // value group into stage i % stages once the consumers released it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid == kWG * 128) {
-      mbar_arrive_expect_tx(k_full, 2 * lay.tile);
-      tma_load_3d(smem + lay.kr, &map_kr, k_full, head * D, 0, b);
-      tma_load_3d(smem + lay.kc, &map_kc, k_full, head * D, 0, b);
+      mbar_arrive_expect_tx(k_full, (lay.cw + lay.ch) * lay.tile);
+      for (int k = 0; k < lay.cw; ++k)
+        tma_load_3d(smem + lay.kr + k * lay.tile, &map_kr, k_full, head * D, 64 * k, b);
+      for (int k = 0; k < lay.ch; ++k)
+        tma_load_3d(smem + lay.kc + k * lay.tile, &map_kc, k_full, head * D, 64 * k, b);
       for (int i = 0; i < n_groups; ++i) {
         if (i >= stages) mbar_wait(&empty[i % stages], ((i / stages) - 1) & 1);
         load_group(i);
@@ -376,7 +426,6 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
   const uint32_t art_hi = smem_u32(art), art_lo = art_hi + lay.art_lo;
   const uint32_t kr_hi = smem_u32(smem + lay.kr), kc_hi = smem_u32(smem + lay.kc);
   const uint32_t kr_lo = smem_u32(smem + lay.kr_lo), kc_lo = smem_u32(smem + lay.kc_lo);
-  const int nks = lay.w8 / 8;  // k-steps over w
   auto load_q = [&](int rr) {  // this warpgroup's q tiles of round rr, by its thread 0
     const int tile = t_begin + rr * kWG + wg;
     if (ct != 0 || rr >= rounds || tile >= t_end) return;
@@ -387,33 +436,46 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
   load_q(0);
   // the key slices: hi in place, lo beside them, split once by all consumers
   mbar_wait(k_full, 0);
-  tf32::split_rows<D>(smem + lay.kr, smem + lay.kr_lo, 64, tid, kWG * 128);
-  tf32::split_rows<D>(smem + lay.kc, smem + lay.kc_lo, 64, tid, kWG * 128);
+  tf32::split_rows<D>(smem + lay.kr, smem + lay.kr_lo, 64 * lay.cw, tid, kWG * 128);
+  tf32::split_rows<D>(smem + lay.kc, smem + lay.kc_lo, 64 * lay.ch, tid, kWG * 128);
   tf32::fence_proxy_async();
   tf32::bar_sync(kWG + 1, kWG * 128);
   if (wg == 1) tf32::bar_arrive(kTurn, kWG * 128);  // warpgroup 0 issues first
 
-  // softmax over the 64 columns (-inf past the axis), normalised in s
-  auto softmax = [&](float (&s)[32], const float* bias) {
+  // softmax over the first n of the C chunks of 64 columns (-inf past the
+  // axis), normalised in s: one max and one sum over all of them, exact
+  auto softmax = [&](float (&s)[C][32], const float* bias, int n) {
     float mx[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int k = 0; k < C; ++k) {
+      if (k > 0 && k >= n) break;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = (s[4 * j + e] + bias[8 * j + 2 * c + (e & 1)]) * kLog2e;
-        s[4 * j + e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = (s[k][4 * j + e] + bias[64 * k + 8 * j + 2 * c + (e & 1)]) * kLog2e;
+          s[k][4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
     mx[0] = quad_max(mx[0]);
     mx[1] = quad_max(mx[1]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = ex2(s[i] - mx[(i >> 1) & 1]);
-      sum[(i >> 1) & 1] += s[i];
+    for (int k = 0; k < C; ++k) {
+      if (k > 0 && k >= n) break;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[k][i] = ex2(s[k][i] - mx[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += s[k][i];
+      }
     }
     const float rs[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= rs[(i >> 1) & 1];
+    for (int k = 0; k < C; ++k) {
+      if (k > 0 && k >= n) break;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[k][i] *= rs[(i >> 1) & 1];
+    }
   };
 
   // Warp wl of warpgroup wg owns rows r0 = 16 wl + g and r0 + 8 of each
@@ -427,43 +489,51 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
   uint32_t v_off[4];  // its A elements of k-step 0 in a group tile: k-step ks is 8 rows on
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    v_off[e] = R::offset(kG * lay.w8, hl * lay.w8 + c + 4 * (e >> 1), vrow + 8 * (e & 1));
+    v_off[e] = R::offset(kG * lay.pw8, hl * lay.pw8 + c + 4 * (e >> 1), vrow + 8 * (e & 1));
   const uint64_t art_hi_desc = Cols::desc(art_hi, 64, 0), art_lo_desc = Cols::desc(art_lo, 64, 0);
-  auto combine = [&](auto nks_c, int seq0, float (&acc)[32]) {
-    constexpr int NKS = decltype(nks_c)::value;
+  auto combine = [&](auto nks_c, auto pass_c, int seq0, float (&acc)[32]) {
+    constexpr int NKS = decltype(nks_c)::value, P = decltype(pass_c)::value;
+    constexpr int KB = P > 0 && NKS > 4 ? 4 : NKS;  // k-steps a batch (see the passes below)
     for (int gi = 0; gi < lay.groups; ++gi) {
       const int i = seq0 + gi, st = i % stages;
       mbar_wait(&full[st], (i / stages) & 1);
-      // v^T's A operands: split into registers, then the stage is released
-      uint32_t v_hi[NKS][4], v_lo[NKS][4];
       const uint8_t* grp = smem + lay.ring + st * lay.group;
-#pragma unroll
-      for (int ks = 0; ks < NKS; ++ks)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float h, l;
-          tf32::split(*reinterpret_cast<const float*>(grp + v_off[e] + 8 * ks * R::kRowBytes),
-                      h, l);
-          v_hi[ks][e] = __float_as_uint(h);
-          v_lo[ks][e] = __float_as_uint(l);
-        }
-      mbar_arrive(&empty[st]);
       float hid[32];
-      tf32::bar_sync(kTurn + wg, kWG * 128);  // this warpgroup's turn to issue
-      wgmma_fence();
+      // the products in batches of KB k-steps, a turn each (one batch
+      // where KB = NKS); a batch's A operands are split into registers,
+      // after the last batch's the stage is released
 #pragma unroll
-      for (int ks = 0; ks < NKS; ++ks)
-        tf32::mma_rs<64>(hid, v_hi[ks], art_lo_desc + Cols::step(64, ks), ks);
+      for (int k0 = 0; k0 < NKS; k0 += KB) {
+        uint32_t v_hi[KB][4], v_lo[KB][4];
 #pragma unroll
-      for (int ks = 0; ks < NKS; ++ks)
-        tf32::mma_rs<64>(hid, v_lo[ks], art_hi_desc + Cols::step(64, ks), 1);
+        for (int kk = 0; kk < KB; ++kk)
 #pragma unroll
-      for (int ks = 0; ks < NKS; ++ks)
-        tf32::mma_rs<64>(hid, v_hi[ks], art_hi_desc + Cols::step(64, ks), 1);
-      wgmma_commit();
-      tf32::bar_arrive(kTurn + (wg ^ 1), kWG * 128);  // the other's turn
-      wgmma_wait<0>();
-      fence_regs(hid);
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + kk >= NKS) break;
+            float h, l;
+            tf32::split(
+                *reinterpret_cast<const float*>(grp + v_off[e] + 8 * (k0 + kk) * R::kRowBytes),
+                h, l);
+            v_hi[kk][e] = __float_as_uint(h);
+            v_lo[kk][e] = __float_as_uint(l);
+          }
+        if (k0 + KB >= NKS) mbar_arrive(&empty[st]);
+        tf32::bar_sync(kTurn + wg, kWG * 128);  // this warpgroup's turn to issue
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KB && k0 + kk < NKS; ++kk)
+          tf32::mma_rs<64>(hid, v_hi[kk], art_lo_desc + Cols::step(64, k0 + kk), k0 + kk);
+#pragma unroll
+        for (int kk = 0; kk < KB && k0 + kk < NKS; ++kk)
+          tf32::mma_rs<64>(hid, v_lo[kk], art_hi_desc + Cols::step(64, k0 + kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < KB && k0 + kk < NKS; ++kk)
+          tf32::mma_rs<64>(hid, v_hi[kk], art_hi_desc + Cols::step(64, k0 + kk), 1);
+        wgmma_commit();
+        tf32::bar_arrive(kTurn + (wg ^ 1), kWG * 128);  // the other's turn
+        wgmma_wait<0>();
+        fence_regs(hid);
+      }
       const int h = gi * kG + hl;
       if (h >= H) continue;
       const float* ac = s_acol + h * kAP;
@@ -476,84 +546,166 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
       }
     }
   };
+  // pass P of the combine (chunk P of w) over nks k-steps (<= 8: one
+  // 64-wide chunk); each (NKS, P) instance has one call site, so that all
+  // of them are inlined and acc stays in registers
+  auto combine_pass = [&](auto pass_c, int nks, int seq0, float (&acc)[32]) {
+    auto run = [&](auto nks_c) { combine(nks_c, pass_c, seq0, acc); };
+    switch (nks) {
+      case 1: run(std::integral_constant<int, 1>{}); break;
+      case 2: run(std::integral_constant<int, 2>{}); break;
+      case 3: run(std::integral_constant<int, 3>{}); break;
+      case 4: run(std::integral_constant<int, 4>{}); break;
+      case 5: run(std::integral_constant<int, 5>{}); break;
+      case 6: run(std::integral_constant<int, 6>{}); break;
+      case 7: run(std::integral_constant<int, 7>{}); break;
+      default: run(std::integral_constant<int, 8>{}); break;
+    }
+  };
 
-  // s = q k^T over a 64-row q tile and a 64-row key slice (hi, lo split)
-  auto score = [&](const uint8_t* q, uint32_t k_hi, uint32_t k_lo, float (&s)[32]) {
+  // s[k] = q k^T over a 64-row q tile and each of the first n of the C
+  // 64-row key tiles of one side (hi, lo split), q split in registers once
+  // as the A operand, all products in one commit
+  auto score_side = [&](const uint8_t* q, uint32_t k_hi, uint32_t k_lo, int n,
+                        float (&s)[C][32]) {
     uint32_t q_hi[D / 8][4], q_lo[D / 8][4];
 #pragma unroll
     for (int ks = 0; ks < D / 8; ++ks) load_a<D>(q, 64, r0, ks, c, q_hi[ks], q_lo[ks]);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s, q_hi[ks], R::desc(k_lo, 64, ks), ks);
+    for (int k = 0; k < C; ++k) {
+      if (k > 0 && k >= n) break;
+      const uint32_t kh = k_hi + k * lay.tile, kl = k_lo + k * lay.tile;
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s, q_lo[ks], R::desc(k_hi, 64, ks), 1);
+      for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s[k], q_hi[ks], R::desc(kl, 64, ks), ks);
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s, q_hi[ks], R::desc(k_hi, 64, ks), 1);
+      for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s[k], q_lo[ks], R::desc(kh, 64, ks), 1);
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) tf32::mma_rs<64>(s[k], q_hi[ks], R::desc(kh, 64, ks), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(s);
+#pragma unroll
+    for (int k = 0; k < C; ++k) fence_regs(s[k]);
   };
 
-  for (int r = 0; r < rounds; ++r) {
-    const int tile = t_begin + r * kWG + wg, seq0 = r * lay.groups;
-    if (tile >= t_end) {  // no tile this round (warpgroup 1): release the round's
-      for (int gi = 0; gi < lay.groups; ++gi) {  // groups, take the turns all the same
-        const int i = seq0 + gi;
-        mbar_wait(&full[i % stages], (i / stages) & 1);
-        mbar_arrive(&empty[i % stages]);
-        tf32::bar_sync(kTurn + wg, kWG * 128);
-        tf32::bar_arrive(kTurn + (wg ^ 1), kWG * 128);
-      }
-      continue;
-    }
-
-    // both score products in 3xTF32, q split in registers as the A operand,
-    // one after the other (fewer registers live at once)
-    float s_row[32], s_col[32];
-    mbar_wait(&q_full[wg], r & 1);
-    score(q_tiles, kr_hi, kr_lo, s_row);
-    score(q_tiles + lay.tile, kc_hi, kc_lo, s_col);
-    // every warp is past the products (the q tiles are free) and past the
-    // last tile's sums (a_row^T and a_col may be rewritten)
-    tf32::bar_sync(1 + wg, 128);
-    load_q(r + 1);
-
-    // a_row^T split into hi and lo (the B operand, rows = queries); a_col
-    // in f32
-    softmax(s_row, s_bias);
-    softmax(s_col, s_bias + 64);
+  // a_row^T of columns 64 p .. of s (one chunk), split into hi and lo (the
+  // B operand of a pass, rows = queries)
+  auto write_art = [&](const float (&s)[32], int p) {
+    const int w8p = min(lay.w8 - 64 * p, 64);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * c + (e & 1), row = r0 + 8 * (e >> 1);
-        if (col < lay.w8) {
+        if (col < w8p) {
           float h, l;
-          tf32::split(s_row[4 * j + e], h, l);
+          tf32::split(s[4 * j + e], h, l);
           const uint32_t off = Cols::offset(64, row, col);
           *reinterpret_cast<float*>(art + off) = h;
           *reinterpret_cast<float*>(art + lay.art_lo + off) = l;
         }
-        if (col < H) s_acol[col * kAP + row] = s_col[4 * j + e];
       }
     tf32::fence_proxy_async();
     tf32::bar_sync(1 + wg, 128);
+  };
 
-    // for each group of kG rows of H: hid^T = v^T a_row^T in 3xTF32 (M =
-    // the group's kG x D value rows, N = the 64 queries, K = w), then
-    // out^T[ch, l] += a_col[l, h] * hid^T[hl D + ch, l] in f32
+  // turns a group of the first pass takes: at C = 2 with two chunks, one a
+  // batch of 4 k-steps of the last chunk's (see below)
+  const int first_turns = C > 1 && lay.cw > 1 ? ((lay.w8 - 64) / 8 + 3) / 4 : 1;
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = t_begin + r * kWG + wg, seq0 = r * per_round;
+    if (tile >= t_end) {  // no tile this round (warpgroup 1): release the round's
+      for (int gi = 0; gi < per_round; ++gi) {  // groups, take the turns all the same
+        const int i = seq0 + gi;
+        mbar_wait(&full[i % stages], (i / stages) & 1);
+        mbar_arrive(&empty[i % stages]);
+        for (int t = gi < lay.groups ? first_turns : 1; t > 0; --t) {
+          tf32::bar_sync(kTurn + wg, kWG * 128);
+          tf32::bar_arrive(kTurn + (wg ^ 1), kWG * 128);
+        }
+      }
+      continue;
+    }
+
+    float s_row[C][32], s_col[C][32];
     float acc[32];
+    mbar_wait(&q_full[wg], r & 1);
+    if constexpr (C == 1) {
+      // both score products in 3xTF32, q split in registers as the A
+      // operand, one after the other (fewer registers live at once)
+      score_side(q_tiles, kr_hi, kr_lo, 1, s_row);
+      score_side(q_tiles + lay.tile, kc_hi, kc_lo, 1, s_col);
+      // every warp is past the products (the q tiles are free) and past the
+      // last tile's sums (a_row^T and a_col may be rewritten)
+      tf32::bar_sync(1 + wg, 128);
+      load_q(r + 1);
+
+      // a_row^T split into hi and lo (the B operand, rows = queries); a_col
+      // in f32
+      softmax(s_row, s_bias, 1);
+      softmax(s_col, s_bias + 64, 1);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    switch (nks) {  // W <= 64: at most 8 k-steps
-      case 1: combine(std::integral_constant<int, 1>{}, seq0, acc); break;
-      case 2: combine(std::integral_constant<int, 2>{}, seq0, acc); break;
-      case 3: combine(std::integral_constant<int, 3>{}, seq0, acc); break;
-      case 4: combine(std::integral_constant<int, 4>{}, seq0, acc); break;
-      case 5: combine(std::integral_constant<int, 5>{}, seq0, acc); break;
-      case 6: combine(std::integral_constant<int, 6>{}, seq0, acc); break;
-      case 7: combine(std::integral_constant<int, 7>{}, seq0, acc); break;
-      default: combine(std::integral_constant<int, 8>{}, seq0, acc); break;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * c + (e & 1), row = r0 + 8 * (e >> 1);
+          if (col < lay.w8) {
+            float h, l;
+            tf32::split(s_row[0][4 * j + e], h, l);
+            const uint32_t off = Cols::offset(64, row, col);
+            *reinterpret_cast<float*>(art + off) = h;
+            *reinterpret_cast<float*>(art + lay.art_lo + off) = l;
+          }
+          if (col < H) s_acol[col * kAP + row] = s_col[0][4 * j + e];
+        }
+      tf32::fence_proxy_async();
+      tf32::bar_sync(1 + wg, 128);
+
+      // for each group of kG rows of H: hid^T = v^T a_row^T in 3xTF32 (M =
+      // the group's kG x D value rows, N = the 64 queries, K = w), then
+      // out^T[ch, l] += a_col[l, h] * hid^T[hl D + ch, l] in f32
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      combine_pass(std::integral_constant<int, 0>{}, lay.w8 / 8, seq0, acc);  // W <= 64: <= 8
+    } else {
+      // the column side first, whole: its scores over every chunk, one
+      // softmax, a_col in f32 (the last tile's sums are read, so a_col is
+      // free), before the row scores take their registers
+      score_side(q_tiles + lay.tile, kc_hi, kc_lo, lay.ch, s_col);
+      softmax(s_col, s_bias + 64 * C, lay.ch);
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 64 * k + 8 * j + 2 * c + (e & 1), row = r0 + 8 * (e >> 1);
+            if (col < H) s_acol[col * kAP + row] = s_col[k][4 * j + e];
+          }
+      score_side(q_tiles, kr_hi, kr_lo, lay.cw, s_row);
+      softmax(s_row, s_bias, lay.cw);
+      // every warp is past the products: the q tiles, in a_row^T's area, are
+      // free
+      tf32::bar_sync(1 + wg, 128);
+
+      // one pass a chunk of 64 columns, the last chunk first: a_row^T of
+      // the chunk, then the combine over the value groups of its columns;
+      // the passes add into one acc (the combine is linear in a_row). While
+      // chunk 0's probabilities wait in registers, a batch holds the A
+      // operands of at most 4 k-steps, so that they and the accumulators
+      // fit beside them (at 50x84 the last chunk has 3).
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      auto pass = [&](auto pass_c) {
+        constexpr int P = decltype(pass_c)::value;
+        if (P < lay.cw - 1) tf32::bar_sync(1 + wg, 128);  // the last pass's products are done
+        write_art(s_row[P], P);
+        combine_pass(pass_c, min(lay.w8 - 64 * P, 64) / 8,
+                     seq0 + (lay.cw - 1 - P) * lay.groups, acc);
+      };
+      if (lay.cw > 1) pass(std::integral_constant<int, 1>{});
+      pass(std::integral_constant<int, 0>{});
     }
 
     // the warps' partial sums (64 / D of them, one per H row of a group)
@@ -582,13 +734,20 @@ rcda_tf32_kernel(const __grid_constant__ CUtensorMap map_qr,
       if (tile * 64 + l < L)
         *reinterpret_cast<float4*>(ob + static_cast<size_t>(tile * 64 + l) * E + ch) = s4;
     }
+    if constexpr (C > 1) {
+      // the sums are read (the q tiles land on them): the next round's q
+      tf32::fence_proxy_async();
+      tf32::bar_sync(1 + wg, 128);
+      load_q(r + 1);
+    }
   }
   if (wg == 0) tf32::bar_sync(kTurn, kWG * 128);  // warpgroup 1's last turn handed back
 }
 
-// q (E, L, B) and key slices (E, W|H, B) in boxes of {D, 64, 1}; values
-// (E, W, H, B) in boxes of one group {D, W8, kN / D, 1}; all at column
-// head * D. Returns a CUDA error code (0: queued).
+// q (E, L, B) and key slices (E, W|H, B) in boxes of {D, 64, 1}, one box a
+// chunk of 64 rows; values (E, W, H, B) in boxes of one group {D, PW8,
+// kN / D, 1}; all at column head * D. The instance: C = 1 up to 64 on both
+// axes, 2 up to 128. Returns a CUDA error code (0: queued).
 template <int D>
 int launch(const void* q_row, const void* q_col, const void* k_row, const void* k_col,
            const void* v, const void* bias_row, const void* bias_col, void* out, int B, int L,
@@ -596,14 +755,15 @@ int launch(const void* q_row, const void* q_col, const void* k_row, const void* 
   if constexpr (D > 32) {  // Layout holds a row of q or k in one 128-byte span
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const int stages = stages_for(D, H, W);
-    if (H > 64 || W > 64 || stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int chunks = chunks_for(H, W), stages = stages_for(D, H, W);
+    if (chunks == 0 || stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+    const Layout lay(D, chunks, H, W, stages);
     using U = cuuint64_t;
     const U dims_q[3] = {U(E), U(L), U(B)};
     const U dims_kr[3] = {U(E), U(W), U(B)}, dims_kc[3] = {U(E), U(H), U(B)};
     const U dims_v[4] = {U(E), U(W), U(H), U(B)};
     const cuuint32_t box_k[3] = {D, 64, 1};
-    const cuuint32_t box_v[4] = {D, static_cast<cuuint32_t>((W + 7) & ~7), kN / D, 1};
+    const cuuint32_t box_v[4] = {D, static_cast<cuuint32_t>(lay.pw8), kN / D, 1};
     CUtensorMap map_qr, map_qc, map_kr, map_kc, map_v;
     if (!tf32::f32_map<D>(&map_qr, q_row, 3, dims_q, box_k) ||
         !tf32::f32_map<D>(&map_qc, q_col, 3, dims_q, box_k) ||
@@ -611,8 +771,8 @@ int launch(const void* q_row, const void* q_col, const void* k_row, const void* 
         !tf32::f32_map<D>(&map_kc, k_col, 3, dims_kc, box_k) ||
         !tf32::f32_map<D>(&map_v, v, 4, dims_v, box_v))
       return static_cast<int>(cudaErrorInvalidValue);
-    auto kern = rcda_tf32_kernel<D>;
-    const int smem = Layout(D, H, W, stages).total + 1024;
+    auto kern = chunks == 1 ? rcda_tf32_kernel<D, 1> : rcda_tf32_kernel<D, 2>;
+    const int smem = lay.total + 1024;
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -677,7 +837,7 @@ int launch(int dtype, const void* q_row, const void* q_col, const void* k_row,
 }  // namespace
 
 // dtype: 0 = float32 on the CUDA cores, 1 = bfloat16, 2 = float32 on the
-// tensor cores (3xTF32; D <= 32, H and W <= 64), every tensor, biases
+// tensor cores (3xTF32; D <= 32, H and W <= 128), every tensor, biases
 // included. Returns cudaGetLastError() after the launch; 0 means it was
 // queued.
 extern "C" int rcda_forward(int dtype, const void* q_row, const void* q_col,

@@ -14,7 +14,8 @@ they round to v's dtype (v3 each probability map, rank-1 the product P
 once); in float32 both roundings are the identity and they are one function
 up to the order of an f32 sum. So every float32 call, of either variant,
 takes ``csrc/rcda.cu``: three TF32 products per product on the tensor cores
-(3xTF32) where ``f32_route`` allows, else its CUDA-core kernel. A bfloat16
+(3xTF32) where ``f32_route`` allows (d <= 32, H and W <= 128), else its
+CUDA-core kernel (d = 64, or an axis past 128). A bfloat16
 call takes its variant's kernel. There is no fallback between kernels: a
 CUDA call that the chosen kernel cannot take raises. Each call is a
 ``core.rcda`` (``core.rcda_rank1``) span and each launch counts
@@ -51,9 +52,13 @@ from countdetr_tpu_torch.utils import trace
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 F32_TENSOR_CORES = 2  # csrc/rcda.cu's code for float32 on the tensor cores
 HEAD_DIMS = (16, 32, 64)
-# H, W limit of the tensor-core paths (a_row held in registers): the bf16
-# kernels of both variants and rcda.cu's 3xTF32 kernel
+# H, W limit of the bf16 kernels of both variants (a_row held in registers
+# over one 64-wide score tile)
 MAX_AXIS = 64
+# H, W limit of rcda.cu's 3xTF32 kernel: 64-wide chunks of either axis, one
+# up to 64, two up to 128 (the softmaxes exact over both, the combine one
+# pass a chunk of W); its shared memory holds 128 x 128 at d = 32
+TF32_MAX_AXIS = 128
 
 
 def rcda_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads):
@@ -105,10 +110,11 @@ def rcda_rank1_core_plain(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num
 
 def f32_route(H, W, d):
     """csrc/rcda.cu's float32 kernel (either variant) for an H x W grid at
-    head dim d: "tensor_cores" (3xTF32 on wgmma; one 64-wide score tile, so
-    H, W <= MAX_AXIS, and a row of q or k in one 128-byte swizzle span, so
-    d <= 32) or "cuda_cores"."""
-    return "tensor_cores" if max(H, W) <= MAX_AXIS and d <= 32 else "cuda_cores"
+    head dim d: "tensor_cores" (3xTF32 on wgmma: H, W <= TF32_MAX_AXIS in
+    64-wide chunks, which covers the COCO detector's 50 x 84 and 84 x 50,
+    and a row of q or k in one 128-byte swizzle span, so d <= 32) or
+    "cuda_cores" (d = 64, or an axis past 128)."""
+    return "tensor_cores" if max(H, W) <= TF32_MAX_AXIS and d <= 32 else "cuda_cores"
 
 
 PLAIN = {"v3": rcda_core_plain, "rank1": rcda_rank1_core_plain}
@@ -119,9 +125,10 @@ SOURCES = {"v3": "rcda", "rank1": "rcda_rank1"}
 def kernel_route(variant, dtype, H, W, d):
     """(source, code) of the kernel that takes a CUDA call: the csrc/ file
     and its C entry's dtype code. float32, either variant: ``rcda`` on the
-    tensor cores (``F32_TENSOR_CORES``) where ``f32_route`` allows, else on
-    its CUDA cores (0). bfloat16: the variant's own kernel (1), which takes
-    H, W <= MAX_AXIS. Raises ValueError where no kernel takes the call."""
+    tensor cores (``F32_TENSOR_CORES``) up to TF32_MAX_AXIS at d <= 32
+    (``f32_route``), else on its CUDA cores (0). bfloat16: the variant's own
+    kernel (1), which takes H, W <= MAX_AXIS. Raises ValueError where no
+    kernel takes the call."""
     if dtype == torch.float32:
         tensor_cores = f32_route(H, W, d) == "tensor_cores"
         return "rcda", F32_TENSOR_CORES if tensor_cores else DTYPE_CODES[dtype]

@@ -52,8 +52,9 @@ device. The counters:
                      a card
     launch.rcda_cuda_cores  float32 RCDA launches (counted in launch.rcda or
                      launch.rcda_rank1 too) that ``f32_route`` sends to
-                     rcda.cu's CUDA-core kernel rather than the tensor cores
-                     (each float32 launch adds to it, 0 on the tensor cores)
+                     rcda.cu's CUDA-core kernel rather than the tensor cores,
+                     head dim 64 or an axis past 128 (each float32 launch
+                     adds to it, 0 on the tensor cores)
 """
 
 from __future__ import annotations

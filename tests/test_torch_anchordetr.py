@@ -4,9 +4,10 @@ against the benchmark's plain reference (``benchmark/reference/
 anchor_detr.py``, ``topk.py``) on seeded random weights, at the published
 widths on small images (96 x 160, a 6 x 10 grid); ``Predictor``'s buckets,
 its staging with no boxes and its top-k results; a stage-2 predictor's
-results under a tuple of buckets. The test marked ``cuda`` runs rcda.cu's
-float32 CUDA-core route at the COCO grids and skips without a card. No
-JAX here."""
+results under a tuple of buckets. The tests marked ``cuda`` run rcda.cu's
+float32 kernels, the 3xTF32 one at the COCO grids and at its chunks' edges,
+the CUDA-core one where the tensor cores do not reach, and skip without a
+card. No JAX here."""
 
 import dataclasses
 
@@ -170,36 +171,82 @@ def test_detector_call_spans():
     assert trace.counters() == {"serve.px_real": 96 * 160, "serve.px_bucket": 96 * 160}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("H, W", [(50, 84), (84, 50)])
-def test_f32_rcda_on_the_cuda_cores_at_the_coco_grids(H, W):
-    """rcda.cu's float32 route past a 64-wide axis: its CUDA-core kernel
-    against ``rcda_core_plain`` (TF32 off) for the encoder's L = H W and the
-    decoder's 900 queries, image 1 padded as an 800 x 1067 image is in the
-    800 x 1344 bucket; each launch counted in ``launch.rcda_cuda_cores``."""
+# rcda.cu's 3xTF32 kernel against rcda_core_plain in float32: the CPU
+# tolerance of its arithmetic against the JAX package
+# (test_torch_f32_tensor_cores.py's RCDA_TOL, a file that imports JAX)
+RCDA_TOL = 2e-5
+
+
+def f32_rcda_case(H, W, L, E=256, n=8, pad=None):
+    """rcda.cu's float32 route on a card against ``rcda_core_plain`` (TF32
+    off) for B = 2, image 1 padded to ``pad`` (columns, rows; by default
+    5 / 7 of each axis): (largest error, ``launch.rcda_cuda_cores``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the RCDA kernel has no CPU mode")
-    assert rcda_kernel.f32_route(H, W, 32) == "cuda_cores"
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        g = torch.Generator(device="cuda").manual_seed(H * W)
+        g = torch.Generator(device="cuda").manual_seed(H * W + L + E)
         r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
-        B, E, n = 2, 256, 8
-        for L in (H * W, 900):
-            args = [r(B, L, E) * 32**-0.5, r(B, L, E) * 32**-0.5, r(B, W, E), r(B, H, E),
-                    r(B, H, W, E), torch.zeros(B, W, device="cuda"),
-                    torch.zeros(B, H, device="cuda")]
-            args[5][1, 67 if W > H else W:] = -1e30
-            args[6][1, H if W > H else 67:] = -1e30
-            trace.reset_launches()
-            got = rcda_kernel.rcda_core(*args, n)
-            torch.cuda.synchronize()
-            assert trace.counters()["launch.rcda_cuda_cores"] == 1
-            assert trace.launch_counts()["rcda"] == 1
-            want = rcda_kernel.rcda_core_plain(*args, n)
-            # both float32 products of the same sums in another order: the
-            # chip smoke test's float32 RCDA tolerance
-            assert (got - want).abs().max().item() < 1e-4
+        B, d = 2, E // n
+        args = [r(B, L, E) * d**-0.5, r(B, L, E) * d**-0.5, r(B, W, E), r(B, H, E),
+                r(B, H, W, E), torch.zeros(B, W, device="cuda"),
+                torch.zeros(B, H, device="cuda")]
+        cols, rows = pad or (W * 5 // 7, H * 5 // 7)
+        args[5][1, cols:] = -1e30
+        args[6][1, rows:] = -1e30
+        trace.reset_launches()
+        got = rcda_kernel.rcda_core(*args, n)
+        torch.cuda.synchronize()
+        assert trace.launch_counts()["rcda"] == 1
+        want = rcda_kernel.rcda_core_plain(*args, n)
+        assert torch.isfinite(got).all()
+        return (got - want).abs().max().item(), trace.counters()["launch.rcda_cuda_cores"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", ["HW", 900])
+@pytest.mark.parametrize("H, W", [(50, 84), (84, 50)])
+def test_f32_rcda_on_the_tensor_cores_at_the_coco_grids(H, W, L):
+    """The COCO detector's C5 grids take rcda.cu's 3xTF32 kernel in two
+    64-wide chunks: the encoder's L = H W and the decoder's 900 queries,
+    image 1 padded as an 800 x 1067 image is in the 800 x 1344 bucket (and
+    turned, in 1344 x 800), within the 3xTF32 tolerance, no launch on the
+    CUDA cores."""
+    assert rcda_kernel.f32_route(H, W, 32) == "tensor_cores"
+    pad = (67, H) if W > H else (W, 67)
+    err, cuda_cores = f32_rcda_case(H, W, H * W if L == "HW" else L, pad=pad)
+    assert cuda_cores == 0
+    assert err <= RCDA_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W, L, E", [
+    (64, 64, 300, 256),    # the widest grid of one chunk
+    (65, 40, 300, 256),    # a second chunk of one row (columns side)
+    (40, 65, 300, 256),    # a second chunk of one column (rows side)
+    (128, 128, 300, 256),  # the widest grid the kernel takes, both sides in two chunks
+    (50, 84, 1000, 128),   # d = 16
+    (84, 50, 130, 256),    # L not a multiple of 64: a ragged last query tile
+])
+def test_f32_rcda_tensor_core_chunks(H, W, L, E):
+    assert rcda_kernel.f32_route(H, W, E // 8) == "tensor_cores"
+    err, cuda_cores = f32_rcda_case(H, W, L, E)
+    assert cuda_cores == 0
+    assert err <= RCDA_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W, E, n", [(37, 37, 256, 4), (136, 80, 256, 8)])
+def test_f32_rcda_on_the_cuda_cores(H, W, E, n):
+    """rcda.cu's CUDA-core kernel where the tensor cores do not reach, d =
+    64 and an axis past 128: each launch counted in
+    ``launch.rcda_cuda_cores``, against the plain core within the chip
+    smoke test's float32 RCDA tolerance (both float32 sums, in another
+    order)."""
+    assert rcda_kernel.f32_route(H, W, E // n) == "cuda_cores"
+    err, cuda_cores = f32_rcda_case(H, W, 900, E, n)
+    assert cuda_cores == 1
+    assert err < 1e-4

@@ -8,14 +8,15 @@ rna(x) and lo = rna(x - hi), and a product accumulates hi*lo + lo*hi, then
 hi*hi, in f32 (lo*lo dropped). MHA: one pass over key tiles of 64 with the
 online softmax, S = Q K^T and O += P V both in 3xTF32, P split after its
 exponential. RCDA v3: both score products and hid = a_row v[h] in 3xTF32,
-a_row split after its softmax, out += a_col[l, h] hid[h] in f32. Each is
+a_row split after its softmax, out += a_col[l, h] hid[h] in f32, one pass a
+chunk of 64 columns past a 64-wide grid (the COCO detector's). Each is
 held against the JAX package's einsum core and its Pallas kernel in
 interpret mode within the f32 tolerances of test_torch_mha_online.py (1e-5)
 and test_torch_rcda_combine.py (2e-5), on their shapes and padding at a
 small size, and MHA at the level layer's 3 queries over 3 keys (one
 batch row a pixel); one TF32 product alone misses them on the same inputs.
 Last, which float32 v3 kernel the RCDA wrapper picks at the main path's
-grids and past the tensor-core kernel's limits.
+grids, at the COCO detector's and past the tensor-core kernel's limits.
 
 This file checks the arithmetic, not the kernels: the kernels run only on
 the card, where chip_smoke.py holds each of them against its plain version
@@ -114,9 +115,11 @@ def rcda_tf32(q_row, q_col, k_row, k_col, v, bias_row, bias_col, num_heads, prod
     a_col = softmax2(s_col + bias_col[:, None, None, :])
     vh = heads(v)  # (B, H, W, n, d)
     out = torch.zeros(B, num_heads, L, d)
-    for h in range(H):
-        hid = einsum_tf32("bnlw,bwnd->bnld", a_row, vh[:, h], products)
-        out = out + a_col[..., h, None] * hid
+    for w0 in range(0, v.shape[2], KEY_TILE):  # past 64 columns: one pass a chunk
+        for h in range(H):
+            hid = einsum_tf32("bnlw,bwnd->bnld", a_row[..., w0:w0 + KEY_TILE],
+                              vh[:, h, w0:w0 + KEY_TILE], products)
+            out = out + a_col[..., h, None] * hid
     return out.permute(0, 2, 1, 3).reshape(B, L, E)
 
 
@@ -186,7 +189,11 @@ def rcda_inputs(H, W, L):
     return tuple(torch.from_numpy(x) for x in args), n, np.asarray(want)
 
 
-@pytest.mark.parametrize("H,W,L", [(37, 37, 300), (24, 42, 200)])
+# the main path's grid, stage 1's, and the COCO detector's two past 64
+RCDA_GRIDS = [(37, 37, 300), (24, 42, 200), (50, 84, 200), (84, 50, 200)]
+
+
+@pytest.mark.parametrize("H,W,L", RCDA_GRIDS)
 def test_rcda_3xtf32_matches_jax(H, W, L):
     args, n, want = rcda_inputs(H, W, L)
     got = rcda_tf32(*args, n)
@@ -194,7 +201,7 @@ def test_rcda_3xtf32_matches_jax(H, W, L):
     assert max_err(got, want) <= RCDA_TOL
 
 
-@pytest.mark.parametrize("H,W,L", [(37, 37, 300), (24, 42, 200)])
+@pytest.mark.parametrize("H,W,L", RCDA_GRIDS)
 def test_rcda_one_tf32_product_misses(H, W, L):
     args, n, want = rcda_inputs(H, W, L)
     assert max_err(rcda_tf32(*args, n, products=1), want) > RCDA_TOL
@@ -204,7 +211,12 @@ def test_rcda_one_tf32_product_misses(H, W, L):
     (37, 37, 32, "tensor_cores"),  # serving at 592x592
     (24, 42, 32, "tensor_cores"),  # stage 1's 384x672 bucket
     (37, 37, 64, "cuda_cores"),    # two warpgroups' q tiles would not fit
-    (72, 104, 32, "cuda_cores"),   # past the 64 columns a_row holds in registers
+    (72, 104, 32, "tensor_cores"),  # two 64-wide chunks of each axis
+    (50, 84, 32, "tensor_cores"),  # the COCO detector's 800x1344 bucket
+    (84, 50, 32, "tensor_cores"),  # and its 1344x800 bucket
+    (128, 128, 32, "tensor_cores"),  # the widest grid the 3xTF32 kernel takes
+    (136, 80, 32, "cuda_cores"),   # past the 128 of two chunks
+    (80, 129, 16, "cuda_cores"),
 ])
 def test_rcda_f32_route(H, W, d, route):
     assert rcda_kernel.f32_route(H, W, d) == route

@@ -111,8 +111,10 @@ F32, BF16 = torch.float32, torch.bfloat16
     ("rank1", F32, 24, 42, 32, ("rcda", rcda_kernel.F32_TENSOR_CORES)),  # stage 1
     ("v3", F32, 24, 42, 32, ("rcda", rcda_kernel.F32_TENSOR_CORES)),
     ("rank1", F32, 37, 37, 32, ("rcda", rcda_kernel.F32_TENSOR_CORES)),  # 592x592
-    ("rank1", F32, 80, 80, 32, ("rcda", 0)),  # past 64 x 64: rcda.cu's CUDA cores
-    ("v3", F32, 80, 80, 32, ("rcda", 0)),
+    ("rank1", F32, 80, 80, 32, ("rcda", rcda_kernel.F32_TENSOR_CORES)),  # two chunks of 64
+    ("v3", F32, 80, 80, 32, ("rcda", rcda_kernel.F32_TENSOR_CORES)),
+    ("rank1", F32, 136, 80, 32, ("rcda", 0)),  # past 128: rcda.cu's CUDA cores
+    ("v3", F32, 136, 80, 32, ("rcda", 0)),
     ("rank1", F32, 37, 37, 64, ("rcda", 0)),  # d = 64
     ("v3", F32, 37, 37, 64, ("rcda", 0)),
     ("rank1", BF16, 37, 37, 32, ("rcda_rank1", 1)),
@@ -127,11 +129,12 @@ def test_no_bfloat16_kernel_past_64(variant):
     with pytest.raises(ValueError, match="H, W <= 64"):
         rcda_kernel.kernel_route(variant, BF16, 80, 80, 32)
     # _check, the wrapper's validation before a launch, refuses the call
-    # too, and passes a float32 one of the same shape to rcda.cu
+    # too, and passes a float32 one of the same shape to rcda.cu's 3xTF32
+    # kernel
     B, L, E, n = 1, 5, 64, 2
     args = [torch.zeros(B, L, E), torch.zeros(B, L, E), torch.zeros(B, 80, E),
             torch.zeros(B, 80, E), torch.zeros(B, 80, 80, E), torch.zeros(B, 80),
             torch.zeros(B, 80)]
-    assert rcda_kernel._check(*args, n, variant) == ("rcda", 0)
+    assert rcda_kernel._check(*args, n, variant) == ("rcda", rcda_kernel.F32_TENSOR_CORES)
     with pytest.raises(ValueError, match="H, W <= 64"):
         rcda_kernel._check(*(x.to(BF16) for x in args), n, variant)
